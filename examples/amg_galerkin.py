@@ -10,7 +10,7 @@ coarsens twice:  A_{l+1} = P_l^T A_l P_l  — each level is two
 spgemm_csr calls (A@P, then P^T@(AP)), value-checked against scipy.
 
 The coarse operators stay symmetric M-matrices, so the check is exact
-in pattern and tight in values. Run on TPU or CPU:
+in pattern and tight in values. Run on the GPU or the CPU:
   python examples/amg_galerkin.py [grid_n] [levels]
 """
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Power iteration (dominant eigenvalue) driven by the framework's SpMV —
 the classic iterative-solver pattern SpMM/SpMV kernels exist for. A is
-packed and uploaded ONCE; each iteration is a single jitted dispatch
-whose input and output vectors stay on device (only per-iteration
-scalars and the final eigenvalue reach the host).
+packed and uploaded ONCE; each iteration is a single jitted dispatch of
+the XLA tile SpMM that `spmm` runs, whose input and output vectors stay
+on device (only the final eigenvalue reaches the host).
 
 Usage: python examples/power_method.py [n] [band]
 """
@@ -19,7 +19,6 @@ import jax.numpy as jnp
 
 from spgemm_tpu.models.csr import CSR
 from spgemm_tpu.models.tile import csr_to_tiles
-from spgemm_tpu.ops.spmm import spmm
 
 
 def banded_spd(n: int, band: int, seed: int = 0) -> CSR:
@@ -44,27 +43,19 @@ def main():
     t = csr_to_tiles(a, 16, 128)
     print(f"A: {n}x{n}, nnz={a.nnz}")
 
-    # pack + upload A once; build a jitted device-resident step
-    from spgemm_tpu.ops.pallas_kernels import spmm_strip_pallas
-    from spgemm_tpu.ops.spmm import _pack_spmm_operands
+    # upload A's tiles once; build a jitted device-resident step around
+    # the XLA tile SpMM
+    from spgemm_tpu.ops.spmm import _spmm_tiles
 
-    k_pad = 128
-    a_dense, _, aptr, ak, arow, max_ablock = _pack_spmm_operands(
-        t, np.zeros((n, 1), np.float32), k_pad, jnp.float32, 64)
-    dev = jax.device_put(tuple(map(jnp.asarray,
-                                   (a_dense, aptr, ak, arow))))
+    dev = jax.device_put((jnp.asarray(t.dense(np.float32)),
+                          jnp.asarray(t.trow), jnp.asarray(t.tcol)))
     n_pad = t.gn * t.tn
 
     @jax.jit
     def step(x):
-        xb = jnp.zeros((n_pad, k_pad), jnp.float32)
-        xb = xb.at[:n, 0].set(x).reshape(t.gn, t.tn, k_pad)
-        y4 = spmm_strip_pallas(
-            dev[0], xb, dev[1], dev[2], dev[3],
-            gm=t.gm, max_ablock=max_ablock, block_rows=64,
-            interpret=jax.default_backend() == "cpu",
-        )
-        y = y4.reshape(-1, k_pad)[:n, 0]
+        xb = jnp.zeros((n_pad,), jnp.float32).at[:n].set(x)
+        y = _spmm_tiles(*dev, xb.reshape(t.gn, t.tn, 1), gm=t.gm)
+        y = y.reshape(-1)[:n]
         lam = jnp.vdot(x, y)
         return y / jnp.linalg.norm(y), lam
 

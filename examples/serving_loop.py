@@ -6,16 +6,16 @@ GPU-resident operands, `src/common.h:91` + step-4-only re-runs,
 
 A sparsity pattern is fixed (a mesh, a graph, a circuit); values change
 every tick (new weights, new conductances). The symbolic work — tiling,
-strip planning or scan-plan build — happens ONCE; each tick is then
+pair scheduling or scan-plan build — happens ONCE; each tick is then
   update_values(new_a, new_b)   # host gather(+multiply) at stream bw
   run()                         # one device dispatch on resident planes
 with no retiling, no symbolic, no full re-upload of anything but the
 value planes.
 
 Routes through the THREE engines to show the API is uniform:
-  structured pattern  -> StripExecutor  (tiled strip kernel, f32)
+  structured pattern  -> StripExecutor  (XLA tile-pair products, f32)
   unstructured        -> EscExecutor    (scan engine)
-  exact f64           -> OzakiExecutor  (int8 slice-pair MXU matmuls)
+  exact f64           -> OzakiExecutor  (int8 slice-pair matmuls)
 
 Usage: python examples/serving_loop.py [n] [ticks]
 """
@@ -65,7 +65,7 @@ def main() -> None:
     ex = StripExecutor(at, bt)
     build_ms = (time.perf_counter() - t0) * 1e3
     print(f"[strip] plan built once: {build_ms:.1f} ms "
-          f"(pairs={ex.args.num_pairs})")
+          f"(pairs={ex.plan.num_pairs})")
     # serving shape: A's values change every tick, B is the fixed
     # operator (StripExecutor keeps B's packed slabs resident and
     # re-uploads only A's value plane)

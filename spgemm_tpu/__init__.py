@@ -1,4 +1,5 @@
-"""spgemm_tpu — a TPU-native tiled sparse linear-algebra framework.
+"""spgemm_tpu — a tiled sparse linear-algebra framework in JAX, run on
+an NVIDIA H100 (the package keeps its historical name).
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of TileSpGEMM
 (PPoPP'22; reference fork at for-the-juan/SpGEMM): general sparse matrix-matrix
@@ -6,26 +7,27 @@ multiplication C = A*B with sparse A, B, C (C = A^2 and C = A*A^T), built on a
 tiled sparse format, plus SpMV/SpMM on the same structure and multi-chip
 scaling via jax.sharding meshes.
 
-Architecture (TPU-first, not a CUDA port):
+Architecture (modelled on the reference, not a port of it):
   * models/  — the data model: CSR and the tiled sparse format (`TileMat`).
                Host-side converters (csr2tile / tile2csr / transpose) are
                vectorized NumPy (argsort/reduceat), with an optional C++
                fast path.
   * ops/     — compute: symbolic tile-grid SpGEMM (pair-list construction),
-               the numeric tile-pair product pipeline (batched MXU matmuls +
-               segment reduction in XLA; fused Pallas kernel as the fast
-               path), the ESC engine for unstructured patterns (sorted-run
-               scan kernel; double-double f64), the Ozaki-slice engine
-               (exact f64 via int8 MXU matmuls), golden reference
+               the numeric tile-pair product pipeline (batched matmuls +
+               segment reduction in XLA), the ESC engine for
+               unstructured patterns (sorted-run scan; double-double f64),
+               the Ozaki-slice engine (exact f64 via int8 matmuls),
+               golden reference
                algorithms (SPA / dense-row / ESC), and SpMV/SpMM (incl. a
                gather SpMM for unstructured inputs).
   * parallel/— multi-chip execution: C-tile work partitioning over a
-               jax.sharding.Mesh with shard_map, B tile all-gather over ICI.
-  * utils/   — timing, CSV sinks, roofline accounting.
+               jax.sharding.Mesh with shard_map, B tile all-gather.
+  * utils/   — platform decisions, timing, CSV sinks, roofline
+               accounting.
   * io/      — Matrix Market reader/writer.
 
 Reference parity map lives in SURVEY.md; each module's docstring cites the
-reference component (file:line under /root/reference) it replaces.
+reference component (file:line in the reference source) it replaces.
 """
 
 from spgemm_tpu.models.csr import CSR

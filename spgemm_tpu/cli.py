@@ -29,7 +29,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="spgemm_tpu",
-        description="TPU-native tiled SpGEMM: C = A^2 or C = A*A^T",
+        description="Tiled SpGEMM: C = A^2 or C = A*A^T",
     )
     p.add_argument("-d", "--device", type=int, default=0,
                    help="device ordinal (reference: -d)")
@@ -40,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("tile_n", nargs="?", type=int, default=128)
     p.add_argument("--backend", default="auto",
                    choices=["auto", "strip", "gustavson", "dense", "esc",
-                            "xla", "pallas", "ozaki"])
+                            "xla", "ozaki"])
     p.add_argument("--dtype", default="f32", choices=["f32", "f64"])
     p.add_argument("--check", default="values",
                    choices=["none", "pattern", "values"],
@@ -66,12 +66,14 @@ def main(argv=None) -> int:
     from spgemm_tpu.ops import golden
     from spgemm_tpu.ops.spgemm import spgemm_csr
     from spgemm_tpu.utils import csv_sink
+    from spgemm_tpu.utils.platform import enable_compile_cache
 
+    enable_compile_cache()
     if args.dtype == "f64" and args.backend not in ("auto", "ozaki",
                                                     "esc"):
-        # auto/ozaki/esc run f64 WITHOUT x64 (Ozaki int8-slice engine /
-        # double-double scan — the TPU has no f64 ALU); only the
-        # x64-emulated tiled backends need the flag
+        # auto/ozaki/esc manage f64 themselves (the auto route enables
+        # x64 for its own call; the Ozaki engine and the double-double
+        # scan need none); an explicit tiled backend needs the flag
         jax.config.update("jax_enable_x64", True)
     compute_dtype = jnp.float64 if args.dtype == "f64" else jnp.float32
 
@@ -132,6 +134,7 @@ def main(argv=None) -> int:
     c, res = best
 
     tms = res.timings_ms
+    print(f"backend: {res.stats.get('backend', args.backend)}")
     print(f"step times: symbolic {tms.get('symbolic_ms', 0):.2f} ms, "
           f"upload {tms.get('upload_ms', 0):.2f} ms, "
           f"numeric {tms.get('numeric_ms', 0):.2f} ms, "

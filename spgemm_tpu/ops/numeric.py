@@ -1,13 +1,13 @@
-"""Numeric phase: batched tile-pair products on the MXU (jitted XLA path).
+"""Numeric phase: batched tile-pair products (jitted XLA path).
 
 Replaces the reference's steps 2/3 (per-tile symbolic mask-OR,
 `src/tilespgemm-cuda.h:394-1271`) and step 4 (numeric accumulation with
 sparse/dense accumulators and 5 size-binned kernels on 5 streams,
 `src/tilespgemm-cuda.h:1273-2218,2649-2728`).
 
-TPU-native reformulation: every matched tile pair is one small dense
-matmul. The pipeline gathers dense A/B tiles by pair index, runs a batched
-(chunked) einsum on the MXU, and scatter-adds into per-C-tile dense
+Reformulation: every matched tile pair is one small dense matmul. The
+pipeline gathers dense A/B tiles by pair index, runs a batched (chunked)
+einsum, and scatter-adds into per-C-tile dense
 accumulators — values and structural counts in the same pass:
 
     Cval[seg]  += Aden[pa] @ Bden[pb]          (numeric)
@@ -16,7 +16,7 @@ accumulators — values and structural counts in the same pass:
 Structural occupancy is an *integer-valued* matmul (counts of contributing
 products), so C's pattern is exact even when numeric sums cancel or stored
 values are zero — this replaces the bitmask-OR + popcount symbolic step
-with the MXU op the hardware actually likes. There is no sparse
+with a dense matmul. There is no sparse
 accumulator, no binary search, no atomics: each C tile's accumulator is
 private to its segment (the reference fork's shared-scratch race,
 SURVEY.md section 2.3, is impossible by construction).
@@ -24,8 +24,7 @@ SURVEY.md section 2.3, is impossible by construction).
 All shapes are static: pair lists are padded to a chunk multiple, padding
 pairs target a dummy trailing segment that is sliced off. fp32 is the
 default compute type (exact for the reference's synthetic integer values);
-fp64 is supported end-to-end for accuracy-critical runs (XLA emulates it
-on TPU; fast on CPU).
+fp64 is supported end-to-end for accuracy-critical runs.
 """
 
 from __future__ import annotations
@@ -37,12 +36,13 @@ import jax.numpy as jnp
 import numpy as np
 
 MASK_BITS = 32
+DEFAULT_CHUNK = 32768  # pairs per scan step of pair_accumulate
 
 
 def unpack_mask(mask: jax.Array, tn: int) -> jax.Array:
     """(nt, tm, mw) uint32 bitmask words -> (nt, tm, tn) float32 occupancy.
 
-    VPU shift-and-mask bit unpack; the device-side inverse of
+    Shift-and-mask bit unpack; the device-side inverse of
     TileMat.occ().
     """
     nt, tm, mw = mask.shape
@@ -65,9 +65,9 @@ def pack_mask(occ: jax.Array, tn: int) -> jax.Array:
 def _pair_matmuls(a_val, a_occ, b_val, b_occ, acc_dtype):
     """Batched per-pair products: values and structural counts.
 
-    Precision.HIGHEST: TPU MXU default precision multiplies f32 inputs in
-    bf16, which loses ~3 decimal digits — unacceptable for a numerics
-    library. HIGHEST selects the f32-equivalent multi-pass path.
+    Precision.HIGHEST: the default precision may multiply f32 inputs in
+    TF32 or bf16, which keeps about three decimal digits — unacceptable
+    for a numerics library. HIGHEST asks for full f32.
     """
     prod = jax.lax.dot_general(
         a_val,
@@ -99,7 +99,7 @@ def pair_accumulate(
     seg: jax.Array,     # (P,) int32, sorted ascending
     *,
     num_segments: int,
-    chunk: int = 32768,
+    chunk: int = DEFAULT_CHUNK,
     acc_dtype=jnp.float32,
 ) -> tuple[jax.Array, jax.Array]:
     """Returns (c_val, c_cnt): (num_segments, tm, tn) accumulators.
@@ -158,3 +158,70 @@ def pad_pairs(
     padn = -(-p // chunk) * chunk - p
     pad32 = lambda x, v: np.concatenate([x, np.full(padn, v, dtype=np.int32)])
     return pad32(pa, 0), pad32(pb, 0), pad32(seg, num_segments)
+
+
+def pair_slots(
+    pa: np.ndarray, pb: np.ndarray, seg: np.ndarray, pair_ptr: np.ndarray,
+    nt_a: int, nt_b: int, max_block: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Pair lists (grouped by C tile) -> slot form: (blocks, maxp, block)
+    int32 A and B tile of the j-th pair of every C tile, maxp the most
+    pairs of any C tile. C tiles are split into equal blocks of at most
+    max_block (the last one padded). Empty slots hold nt_a / nt_b, one
+    past the last tile, which slot_accumulate reads as a zero tile."""
+    nt_c = pair_ptr.size - 1
+    maxp = int(np.diff(pair_ptr).max()) if nt_c else 0
+    blocks = max(1, -(-nt_c // max_block))
+    block = -(-nt_c // blocks)
+    sa = np.full((maxp, blocks * block), nt_a, dtype=np.int32)
+    sb = np.full((maxp, blocks * block), nt_b, dtype=np.int32)
+    rank = np.arange(pa.size) - pair_ptr[seg]
+    sa[rank, seg] = pa
+    sb[rank, seg] = pb
+    split = lambda x: x.reshape(maxp, blocks, block).transpose(1, 0, 2)
+    return split(sa), split(sb)
+
+
+@functools.partial(jax.jit, static_argnames=("num_segments",))
+def slot_accumulate(
+    a_val: jax.Array,   # (ntA, tm, tk) dense A tiles
+    a_occ: jax.Array,   # (ntA, tm, tk) 0/1 occupancy
+    b_val: jax.Array,   # (ntB, tk, tn)
+    b_occ: jax.Array,   # (ntB, tk, tn) 0/1
+    sa: jax.Array,      # (blocks, maxp, block) int32 from pair_slots
+    sb: jax.Array,      # (blocks, maxp, block) int32
+    *,
+    num_segments: int,
+) -> tuple[jax.Array, jax.Array]:
+    """Returns (c_val, c_cnt): (num_segments, tm, tn) f32 accumulators.
+
+    Scatter-free form of pair_accumulate: each C tile sums its own pair
+    slots, one batched product per slot layer, and is written once. On
+    the H100, XLA's scatter of pair products into (64, 128) C tiles
+    fails to launch (out of memory) beyond a few thousand pairs; this
+    form has no scatter. Blocks of C tiles run in turn (lax.map), so the
+    tiles one layer gathers never exceed one block."""
+    tm, tn = a_val.shape[1], b_val.shape[2]
+    blocks, maxp, block = sa.shape
+    take = functools.partial(jnp.take, axis=0, mode="fill", fill_value=0)
+
+    def run_block(slots):
+        sa_b, sb_b = slots
+
+        def layer(j, carry):
+            cv, cc = carry
+            prod, cnt = _pair_matmuls(
+                take(a_val, sa_b[j]), take(a_occ, sa_b[j]),
+                take(b_val, sb_b[j]), take(b_occ, sb_b[j]), jnp.float32)
+            return cv + prod, cc + cnt
+
+        zero = jnp.zeros((block, tm, tn), jnp.float32)
+        return jax.lax.fori_loop(0, maxp, layer, (zero, zero))
+
+    if blocks == 1:
+        c_val, c_cnt = run_block((sa[0], sb[0]))
+    else:
+        c_val, c_cnt = jax.lax.map(run_block, (sa, sb))
+        c_val = c_val.reshape(blocks * block, tm, tn)
+        c_cnt = c_cnt.reshape(blocks * block, tm, tn)
+    return c_val[:num_segments], c_cnt[:num_segments]

@@ -4,14 +4,15 @@ The reference has no SpMV/SpMM, but the north-star spec extends the tile
 structure to dense right-hand sides (batched k = 32/128), reusing the
 tile-product machinery (BASELINE.json configs[3]).
 
-TPU-native formulation: X is viewed as (gn, tn, k) row-blocks; each
-stored A tile contributes one (tm, tn) x (tn, k) MXU matmul, and tile-rows
-reduce with a scatter-add over at most gm segments:
+Tile formulation: X is viewed as (gn, tn, k) row-blocks; each stored A
+tile contributes one (tm, tn) x (tn, k) matmul, and tile-rows reduce with
+a scatter-add over at most gm segments:
 
     Y[trow] += A_dense[t] @ X_blocks[tcol[t]]
 
-This is one batched gather + batched matmul + segment reduction — all
-MXU/VPU work, no per-nonzero control flow.
+This is one batched gather + batched matmul + segment reduction in plain
+XLA, no per-nonzero control flow. Unstructured A goes through the raw-CSR
+gather formulation (spmm_gather) instead.
 """
 
 from __future__ import annotations
@@ -75,69 +76,18 @@ def _spmm_tiles(
     return y
 
 
-def _spmm_block_stats(a: TileMat, block_rows: int):
-    """(max_ablock, kmin per block, max k-span per block)."""
-    aptr64 = a.tptr.astype(np.int64)
-    starts = np.minimum(
-        np.append(np.arange(0, a.gm, block_rows), a.gm), a.gm)
-    per_block = np.diff(aptr64[starts])
-    max_ablock = max(1, int(per_block.max()) if per_block.size else 1)
-    n_blocks = max(1, -(-a.gm // block_rows))
-    row_starts = np.arange(0, a.gm, block_rows)
-    if a.nt and row_starts.size:
-        ak64 = a.tcol.astype(np.int64)
-        row_has = np.diff(aptr64) > 0
-        firstk = np.where(row_has, ak64[np.minimum(aptr64[:-1], a.nt - 1)],
-                          a.gn)
-        lastk = np.where(row_has, ak64[np.maximum(aptr64[1:] - 1, 0)], -1)
-        blk_min = np.minimum.reduceat(firstk, row_starts)
-        blk_max = np.maximum.reduceat(lastk, row_starts)
-        bad = blk_max < blk_min
-        blk_min[bad] = 0
-        blk_max[bad] = 0
-        span = max(1, int((blk_max - blk_min + 1).max()))
-    else:
-        blk_min = np.zeros(n_blocks, np.int64)
-        span = 1
-    return max_ablock, blk_min, span
-
-
-def _spmm_mode(a: TileMat, k_pad: int, block_rows: int = 64):
-    """Returns (mode, stats) where mode is 'resident' (X fully in VMEM),
-    'window' (per-block contiguous X window), or 'xla' (gather fallback),
-    and stats = (max_ablock, kmin per block, max k-span) — computed once
-    and threaded to the packing/kernel stages."""
-    import jax as _jax
-
-    stats = _spmm_block_stats(a, block_rows)
-    if _jax.default_backend() == "cpu":
-        return "resident", stats  # interpret mode: no alignment/VMEM limits
-    if a.tn % 128 != 0 or a.tm % 8 != 0:
-        return "xla", stats
-    max_ablock, _, span = stats
-    fixed = (2 * max_ablock * a.tm * a.tn * 4          # A double buffer
-             + 2 * block_rows * a.tm * k_pad * 4)      # Y staging
-    if a.gn * a.tn * k_pad * 4 + fixed <= 100 * 1024 * 1024:
-        return "resident", stats
-    if 2 * span * a.tn * k_pad * 4 + fixed <= 100 * 1024 * 1024:
-        return "window", stats
-    return "xla", stats
-
-
 def spmm(a: TileMat, x, *, dtype=jnp.float32, backend: str = "auto") -> jax.Array:
     """Y = A @ X. x: (n, k) or (n,) array-like. Returns (m, k) / (m,).
 
-    backend "auto" picks by a modelled HBM-traffic comparison: the
-    raw-CSR gather path (spmm_gather — one 128-wide X row gather per
-    nonzero) when its bytes undercut the tile kernel's (sparse
-    unstructured tiles waste tile bandwidth on padding; a 16 MB floor
-    keeps tiny problems on the kernel), else a Pallas strip kernel
-    (X fully VMEM-resident when it fits — spmm_strip_pallas — else a
-    per-block contiguous X window, spmm_window_pallas), else the XLA
-    fallback. "gather" forces the raw-CSR path; "xla" forces the XLA
-    tile path; "strip" requires a kernel mode and raises ValueError
-    when neither fits (alignment or VMEM).
+    backend "auto" picks by a modelled device-traffic comparison: the
+    raw-CSR gather path (spmm_gather — one X row gather per nonzero)
+    when its bytes undercut the tile path's (sparse unstructured tiles
+    waste bandwidth on padding; a 16 MB floor keeps tiny problems on the
+    one-dispatch tile path), else the XLA tile path (_spmm_tiles).
+    "gather" and "xla" force one side.
     """
+    if backend not in ("auto", "gather", "xla"):
+        raise ValueError(f"unknown SpMM backend {backend!r}")
     x = np.asarray(x)
     vec = x.ndim == 1
     if vec:
@@ -147,51 +97,32 @@ def spmm(a: TileMat, x, *, dtype=jnp.float32, backend: str = "auto") -> jax.Arra
     k = x.shape[1]
     k_pad = max(128, -(-k // 128) * 128)
 
-    import jax as _jax
-
     f64 = jnp.dtype(dtype) == jnp.dtype(np.float64)
-    hw_ok = _jax.default_backend() == "cpu" or not f64  # no f64 MXU path
-    stats = None
-    mode = "xla"
-    if hw_ok and backend in ("auto", "strip"):
-        mode, stats = _spmm_mode(a, k_pad)
-    if backend == "strip" and mode == "xla":
-        raise ValueError("strip SpMM infeasible (alignment/VMEM)")
     # unstructured patterns (many near-empty tiles) blow up the dense
-    # tile paths — a 786k-tile random matrix needs >6 GB of dense tiles.
-    # The gather formulation works from the raw CSR instead. Routing is
-    # by HBM traffic model (both paths are bandwidth-bound): the tile
-    # kernels stream tm*tn*4 B per stored tile, the gather kernel one
-    # k_pad-wide X row + 8 B of (val, col) per nonzero — so gather wins
-    # whenever tiles average fewer than ~tm*tn*4/(k_pad*4+8) nonzeros
-    # (~16 at 16x128 tiles, k=128; random8192 averages 4/tile and ran
-    # 11x slower through the dense path before this gate, VERDICT r2
-    # weak #5). An explicit backend="xla"/"strip" still forces the tile
-    # path.
+    # tile path — a 786k-tile random matrix needs >6 GB of dense tiles.
+    # The gather formulation works from the raw CSR instead. Both are
+    # bandwidth-bound: the tile path streams tm*tn*4 B per stored tile,
+    # the gather path one k_pad-wide X row + 8 B of (val, col) per
+    # nonzero — so gather wins whenever tiles average fewer than
+    # ~tm*tn*4/(k_pad*4+8) nonzeros (~16 at 16x128 tiles, k=128).
     gather_bytes = a.nnz * (k_pad * 4 + 8)
     tile_bytes = a.nt * a.tm * a.tn * 4
     if backend == "gather" or (
         backend == "auto"
-        and ((mode == "xla" and tile_bytes > 1 << 30)
-             # the 16 MB floor keeps small problems on the one-dispatch
-             # tile kernels: below it the gather path's per-row-length-
-             # class dispatches (and their one-time compiles) dominate
+        and (tile_bytes > 1 << 30
              or (not f64 and gather_bytes < tile_bytes
                  and tile_bytes > 16 << 20))
     ):
         return _finish(spmm_gather(a.to_csr(), x, dtype=dtype), vec, a, k)
-    if mode in ("resident", "window"):
-        y = _spmm_strip(a, x, k_pad, dtype, mode=mode, stats=stats)
-    else:
-        pad = a.gn * a.tn - a.n
-        xb = np.pad(x, ((0, pad), (0, 0))).reshape(a.gn, a.tn, k)
-        y = _spmm_tiles(
-            jnp.asarray(a.dense(), dtype=dtype),
-            jnp.asarray(a.trow),
-            jnp.asarray(a.tcol),
-            jnp.asarray(xb, dtype=dtype),
-            gm=a.gm,
-        ).reshape(a.gm * a.tm, k)
+    pad = a.gn * a.tn - a.n
+    xb = np.pad(x, ((0, pad), (0, 0))).reshape(a.gn, a.tn, k)
+    y = _spmm_tiles(
+        jnp.asarray(a.dense(), dtype=dtype),
+        jnp.asarray(a.trow),
+        jnp.asarray(a.tcol),
+        jnp.asarray(xb, dtype=dtype),
+        gm=a.gm,
+    ).reshape(a.gm * a.tm, k)
     y = y[: a.m, :k]
     return y[:, 0] if vec else y
 
@@ -223,21 +154,11 @@ def _spmm_gather_classes(a, cap: int = 512, gran: int = 4):
 
 @functools.partial(jax.jit, static_argnames=("k_pad", "fuse"))
 def _spmm_gather_kernel(av, col, xb, *, k_pad, fuse=True):
-    """out[s, :] = sum_c av[s, c] * X[col[s, c]]: one 128-wide X row
-    gather (the fast gather class, tools/probe_primitives.py) fused into
-    a VPU multiply-reduce. No one-hot matmul: the round-2 formulation
-    spent rg=256 MXU flops per useful flop and ran at 3.5-11 GFLOPS; the
-    gather bound here is ~0.38 G rows/s -> ~100 GFLOPS at k=128.
-
-    A/B-measured on the v5e (benchdata/spmm_gather_ab.txt): this fused
-    gather+multiply-reduce form wins 4 of 5 unstructured regimes
-    (59-182 GFLOPS) over `fuse=False`, which pins the gather as a
-    standalone op behind an optimization_barrier and reduces with a
-    batched (1,c)x(c,k) MXU contraction — the barrier costs an extra
-    HBM round-trip of the (s*c, k_pad) gathered block. (Round 2's
-    recorded 6 GFLOPS was NOT this kernel: spmm() misrouted unstructured
-    matrices through the dense-tile strip path; see the traffic-model
-    gate in spmm().)"""
+    """out[s, :] = sum_c av[s, c] * X[col[s, c]]: one X row gather per
+    nonzero fused into a multiply-reduce. fuse=False instead pins the
+    gather as a standalone op behind an optimization_barrier and reduces
+    with a batched (1,c)x(c,k) contraction — an A/B variant that costs
+    an extra device round-trip of the (s*c, k_pad) gathered block."""
     sN, c = av.shape
     xg = jnp.take(xb, col.reshape(-1), axis=0)
     if fuse:
@@ -278,24 +199,18 @@ def _pack_spmm_gather(a_csr, x, np_dt, cap: int = 512, gran: int = 4):
 def spmm_gather(a_csr, x, *, dtype=jnp.float32, cap: int = 512,
                 gran: int = 4, fuse: bool = True):
     """Y = A @ X for unstructured A, straight from CSR: no tiles, no
-    scatter — one 128-wide X row gather per nonzero fused into a VPU
-    multiply-reduce over row-length classes. Computes in `dtype`
-    (float64 needs jax_enable_x64).
+    scatter — one X row gather per nonzero fused into a multiply-reduce
+    over row-length classes. Computes in `dtype` (float64 needs
+    jax_enable_x64).
 
-    Roofline (the VERDICT r2 weak-#5 accounting): per nonzero the
-    device moves one X row (k_pad*4 B = 512 B at k=128, a random row
-    gather — the one gather shape this chip is fast at), 4 B of value
-    and 4 B of column index; the output write amortizes over the row
-    length. That is 2k flops / ~520 B = 0.49 flops/B, i.e. ~220 GFLOPS
-    speed-of-light at the ~450 GB/s practical stream rate — the
-    formulation is gather-bandwidth-bound by design (the earlier
-    one-hot MXU contraction spent 256x the flops to avoid the gather
-    and lost: 3.5-11.5 GFLOPS measured at n=8192).
+    Traffic model: per nonzero the device moves one X row (k_pad*4 B =
+    512 B at k=128, a random row gather), 4 B of value and 4 B of column
+    index; the output write amortizes over the row length — 2k flops per
+    ~520 B, a bandwidth-bound formulation by design.
 
-    fuse=True (production default) reduces with an in-kernel VPU
-    multiply-reduce; fuse=False uses an MXU dot_general per class — an
-    A/B kept for tools/measure_spmm_gather.py. Env SPGEMM_SPMM_FUSE
-    overrides the default for measurement runs only."""
+    fuse=True (default) reduces with a fused multiply-reduce; fuse=False
+    is the A/B variant above. Env SPGEMM_SPMM_FUSE overrides the default
+    for measurement runs only."""
     np_dt = np.dtype(jnp.dtype(dtype).name)
     if np_dt == np.float64 and not jax.config.jax_enable_x64:
         raise ValueError(
@@ -315,111 +230,40 @@ def spmm_gather(a_csr, x, *, dtype=jnp.float32, cap: int = 512,
     return y[:, :k]
 
 
-def _pack_spmm_operands(a: TileMat, x: np.ndarray, k_pad: int, dtype,
-                        block_rows: int, max_ablock: int | None = None):
-    """Shared operand packing for the strip SpMM kernel and its timer."""
-    from spgemm_tpu.models.csr import INDEX_DTYPE
-
-    k = x.shape[1]
-    np_dtype = np.dtype(jnp.dtype(dtype).name)
-    xb = np.zeros((a.gn, a.tn, k_pad), dtype=np_dtype)
-    xb.reshape(a.gn * a.tn, k_pad)[: a.n, :k] = x
-
-    if max_ablock is None:
-        max_ablock = _spmm_block_stats(a, block_rows)[0]
-
-    a_dense = np.zeros((a.nt + max_ablock, a.tm, a.tn), dtype=np_dtype)
-    a_dense[: a.nt] = a.dense(np_dtype)
-    ak = np.zeros(a.nt + max_ablock, dtype=INDEX_DTYPE)
-    ak[: a.nt] = a.tcol
-    arow = np.zeros(a.nt + max_ablock, dtype=INDEX_DTYPE)
-    arow[: a.nt] = a.trow
-    aptr = a.tptr.astype(INDEX_DTYPE)
-    return a_dense, xb, aptr, ak, arow, max_ablock
-
-
-def _spmm_strip(a: TileMat, x: np.ndarray, k_pad: int, dtype,
-                block_rows: int = 64, mode: str = "resident",
-                stats=None) -> jax.Array:
-    import jax as _jax
-
-    from spgemm_tpu.models.csr import INDEX_DTYPE
-    from spgemm_tpu.ops.pallas_kernels import (spmm_strip_pallas,
-                                               spmm_window_pallas)
-
-    if stats is None:
-        stats = _spmm_block_stats(a, block_rows)
-    max_ablock, blk_min, kwin = stats
-    a_dense, xb, aptr, ak, arow, max_ablock = _pack_spmm_operands(
-        a, x, k_pad, dtype, block_rows, max_ablock=max_ablock)
-    interpret = _jax.default_backend() == "cpu"
-    if mode == "window":
-        # kwin <= gn by construction, so xb (gn slabs) always covers the
-        # clipped windows
-        kmin = np.clip(blk_min, 0, a.gn - kwin).astype(INDEX_DTYPE)
-        y = spmm_window_pallas(
-            jnp.asarray(a_dense, dtype=dtype), jnp.asarray(xb, dtype=dtype),
-            jnp.asarray(aptr), jnp.asarray(ak), jnp.asarray(arow),
-            jnp.asarray(kmin),
-            gm=a.gm, max_ablock=max_ablock, kwin=kwin,
-            block_rows=block_rows, interpret=interpret,
-        )
-    else:
-        y = spmm_strip_pallas(
-            jnp.asarray(a_dense, dtype=dtype), jnp.asarray(xb, dtype=dtype),
-            jnp.asarray(aptr), jnp.asarray(ak), jnp.asarray(arow),
-            gm=a.gm, max_ablock=max_ablock, block_rows=block_rows,
-            interpret=interpret,
-        )
-    return y.reshape(-1, k_pad)[: a.gm * a.tm]
-
-
 def spmv(a: TileMat, x, *, dtype=jnp.float32) -> jax.Array:
     """y = A @ x for a 1-D x (SpMV), via the SpMM path."""
     return spmm(a, x, dtype=dtype)
 
 
 def time_spmm(a: TileMat, x, *, loop: int = 20, repeats: int = 2,
-              dtype=jnp.float32) -> tuple[float, float]:
-    """Amortized per-dispatch device time for the strip SpMM kernel
-    (chained dispatches, RTT-subtracted; see utils.timing.chained_device_ms).
-    Returns (spmm_ms, rtt_ms). Requires the strip path to be feasible."""
-    import jax as _jax
-
-    from spgemm_tpu.ops.pallas_kernels import spmm_strip_pallas
+              dtype=jnp.float32) -> float:
+    """Amortized per-dispatch device time of the XLA tile SpMM
+    (_spmm_tiles, chained dispatches; see utils.timing.chained_device_ms)."""
     from spgemm_tpu.utils.timing import chained_device_ms
 
     x = np.asarray(x)
-    k_pad = max(128, -(-x.shape[1] // 128) * 128)
-    if _spmm_mode(a, k_pad)[0] != "resident":
-        raise ValueError("strip SpMM (resident X) infeasible for this "
-                         "matrix/k; time the window mode via spmm()")
-    block_rows = 64
-    ops = _pack_spmm_operands(a, x, k_pad, dtype, block_rows)
-    a_dense, xb, aptr, ak, arow, max_ablock = ops
-    interpret = _jax.default_backend() == "cpu"
-    dev = jax.device_put((jnp.asarray(a_dense, dtype=dtype),
-                          jnp.asarray(xb, dtype=dtype),
-                          jnp.asarray(aptr), jnp.asarray(ak),
-                          jnp.asarray(arow)))
+    k = x.shape[1]
+    pad = a.gn * a.tn - a.n
+    xb = np.pad(x, ((0, pad), (0, 0))).reshape(a.gn, a.tn, k)
+    dev = jax.device_put((jnp.asarray(a.dense(), dtype=dtype),
+                          jnp.asarray(a.trow), jnp.asarray(a.tcol),
+                          jnp.asarray(xb, dtype=dtype)))
     jax.block_until_ready(dev)
-    kwargs = dict(gm=a.gm, max_ablock=max_ablock, block_rows=block_rows,
-                  interpret=interpret)
 
     @jax.jit
-    def chain(ad, xd, *rest):
+    def chain(ad, trow, tcol, xd):
         def body(i, acc):
-            y = spmm_strip_pallas(ad + acc * 1e-30, xd, *rest, **kwargs)
+            y = _spmm_tiles(ad + acc * 1e-30, trow, tcol, xd, gm=a.gm)
             return acc + jnp.sum(y).astype(jnp.float32)
         return jax.lax.fori_loop(0, loop, body, jnp.float32(0))
 
-    return chained_device_ms(chain, dev[2], *dev, repeats=repeats, loop=loop)
+    return chained_device_ms(chain, *dev, repeats=repeats, loop=loop)
 
 
 def time_spmm_gather(a_csr, x, *, loop: int = 20,
-                     repeats: int = 2) -> tuple[float, float]:
+                     repeats: int = 2) -> float:
     """Amortized device time of the gather SpMM kernel (resident
-    operands, chained dispatches). Returns (ms, rtt_ms)."""
+    operands, chained dispatches)."""
     from spgemm_tpu.utils.timing import chained_device_ms
 
     xb, classes, k, k_pad = _pack_spmm_gather(a_csr, x, np.float32)
@@ -442,7 +286,7 @@ def time_spmm_gather(a_csr, x, *, loop: int = 20,
             for av, col in arrs:
                 out = _spmm_gather_kernel(av + acc * 1e-30, col, xd,
                                           k_pad=k_pad, fuse=fuse)
-                s = s + jnp.sum(out[-1, -8:])
+                s = s + jnp.sum(out)
             return s
 
         return jax.lax.fori_loop(0, loop, body, jnp.float32(0))
@@ -450,6 +294,5 @@ def time_spmm_gather(a_csr, x, *, loop: int = 20,
     flat = []
     for d in dev:
         flat += list(d)
-    probe = jax.device_put(jnp.zeros(8, jnp.float32))
-    return chained_device_ms(chain, probe, xd, *flat,
+    return chained_device_ms(chain, xd, *flat,
                              repeats=repeats, loop=loop)

@@ -6,12 +6,12 @@ Replaces the reference's step 1 (symbolic tile-grid SpGEMM:
 pair-matching half of steps 2/3 (warp binary-search set intersection,
 `src/tilespgemm-cuda.h:167-277,538-663`).
 
-TPU-native reformulation: instead of intersecting A's tile-row with B's
+Reformulation: instead of intersecting A's tile-row with B's
 tile-column per C tile (which needs B column-major and per-thread binary
 search), we *expand* in Gustavson order — every A tile (i,k) pairs with
 every B tile in tile-row k — then sort pairs by C tile key. One vectorized
 argsort replaces binning, hashing, and intersection entirely, and the
-sorted pair list is exactly the schedule the MXU numeric kernel wants:
+sorted pair list is exactly the schedule the numeric kernel wants:
 contiguous segments per C tile, ascending k inside a segment.
 
 Output sizes (number of C tiles, pair count) are data-dependent, so this

@@ -3,14 +3,14 @@
 The reference is single-GPU (SURVEY.md 2.7); this module is the
 framework's distributed extension per the north-star spec
 (BASELINE.json): **A tile-rows partitioned across devices, B tiles
-all-gathered over ICI, C tiles owner-computed** — SPMD via
-jax.shard_map, with XLA inserting the collectives.
+all-gathered, C tiles owner-computed** — SPMD via jax.shard_map, with
+XLA inserting the collectives.
 
 Partitioning: C tile-row i is owned by the device owning A tile-row i,
 so every pair (A(i,k), B(k,j)) lands on the owner of its output tile —
 no cross-device reduction is needed (contrast with an A-column split
 which would psum). Devices exchange only B tiles (one all-gather), which
-rides ICI and overlaps with the first pair chunks under XLA's scheduler.
+overlaps with the first pair chunks under XLA's scheduler.
 
 Host-side planning (plan_row_partition) balances devices by *pair count*
 (compute load), not tile count, then pads every per-device array to the
@@ -35,30 +35,45 @@ from spgemm_tpu.ops.symbolic import PairSchedule, build_pair_schedule
 
 @dataclasses.dataclass
 class DistPlan:
-    """Host-side SPMD execution plan for one (A, B, mesh-size) triple."""
+    """Host-side SPMD execution plan for one (A, B, mesh-size) triple.
+
+    The partition (which rows, tiles and pairs each device owns) is
+    always set; the per-device padded arrays, stacked on axis 0 (the mesh
+    axis), are set by plan_row_partition and left None by
+    place_strip_partition, which packs one shard at a time."""
 
     ndev: int
-    # per-device padded arrays, all stacked on axis 0 (the mesh axis)
-    a_val: np.ndarray    # (D, ntA_max, tm, tk)
-    a_occ: np.ndarray
-    b_val: np.ndarray    # (D, ntB_max, tk, tn)  (sharded; all-gathered on device)
-    b_occ: np.ndarray
-    pa: np.ndarray       # (D, P_max) local A tile index
-    pb: np.ndarray       # (D, P_max) index into the all-gathered padded B
-    seg: np.ndarray      # (D, P_max) local C segment, padding -> S_max
     s_max: int           # local segments per device (excl. dummy)
     # bookkeeping to reassemble C on host
     seg_counts: np.ndarray   # (D,) real segments per device
     ctrow: np.ndarray        # (ntC,) global candidate C tile coords
     ctcol: np.ndarray
     schedule: PairSchedule
+    # partition: device d owns A tiles [a_lo[d], a_hi[d]), B tiles
+    # [d*ntb_shard, (d+1)*ntb_shard) and the pairs with pair_dev == d
+    a_lo: np.ndarray
+    a_hi: np.ndarray
+    nta_max: int
+    ntb_shard: int
+    seg_off: np.ndarray
+    pair_dev: np.ndarray
+    p_max: int
+    a_val: np.ndarray | None = None    # (D, ntA_max, tm, tk)
+    a_occ: np.ndarray | None = None
+    b_val: np.ndarray | None = None    # (D, ntB_shard, tk, tn) (all-gathered on device)
+    b_occ: np.ndarray | None = None
+    pa: np.ndarray | None = None       # (D, P_max) local A tile index
+    pb: np.ndarray | None = None       # (D, P_max) index into the all-gathered padded B
+    seg: np.ndarray | None = None      # (D, P_max) local C segment, sorted; padding -> S_max
 
 
-def plan_row_partition(
-    a: TileMat, b: TileMat, ndev: int, dtype=np.float32
-) -> DistPlan:
+_DIST_ARRAYS = ("a_val", "a_occ", "b_val", "b_occ", "pa", "pb", "seg")
+
+
+def _partition(a: TileMat, b: TileMat, ndev: int) -> DistPlan:
     """Partition A tile-rows (and C tile-rows with them) over `ndev`
-    devices, balancing total pair count per device."""
+    devices, balancing total pair count per device. Host arrays: the
+    pair schedule and per-device bounds only."""
     sched = build_pair_schedule(a, b)
 
     # pairs per C tile-row -> contiguous row ranges with ~equal pairs
@@ -76,64 +91,84 @@ def plan_row_partition(
     # A tiles are sorted by tile-row: device ranges are contiguous slices
     a_lo = a.tptr[row_start].astype(np.int64)
     a_hi = a.tptr[row_end].astype(np.int64)
-    ntA_max = max(1, int((a_hi - a_lo).max()) if a.nt else 1)
-
-    # B tiles: even contiguous shard; devices all-gather at run time
-    ntB_shard = max(1, cdiv(max(b.nt, 1), ndev))
-    ntB_pad = ntB_shard * ndev
-
-    ad, ao = a.dense(dtype), a.occ().astype(np.float32)
-    bd, bo = b.dense(dtype), b.occ().astype(np.float32)
-
-    a_val = np.zeros((ndev, ntA_max) + ad.shape[1:], dtype=dtype)
-    a_occ = np.zeros((ndev, ntA_max) + ao.shape[1:], dtype=np.float32)
-    for d in range(ndev):
-        n = a_hi[d] - a_lo[d]
-        a_val[d, :n] = ad[a_lo[d] : a_hi[d]]
-        a_occ[d, :n] = ao[a_lo[d] : a_hi[d]]
-
-    b_val = np.zeros((ndev, ntB_shard) + bd.shape[1:], dtype=dtype)
-    b_occ = np.zeros((ndev, ntB_shard) + bo.shape[1:], dtype=np.float32)
-    flatb = np.zeros((ntB_pad,) + bd.shape[1:], dtype=dtype)
-    flato = np.zeros((ntB_pad,) + bo.shape[1:], dtype=np.float32)
-    flatb[: b.nt] = bd
-    flato[: b.nt] = bo
-    for d in range(ndev):
-        b_val[d] = flatb[d * ntB_shard : (d + 1) * ntB_shard]
-        b_occ[d] = flato[d * ntB_shard : (d + 1) * ntB_shard]
 
     # segments (C tiles) per device: contiguous because ctrow is sorted
     seg_dev = np.searchsorted(row_start[1:], seg_row, side="right") \
         if ndev > 1 else np.zeros(sched.nt_c, dtype=np.int64)
     seg_counts = np.bincount(seg_dev, minlength=ndev)
-    seg_off = np.concatenate([[0], np.cumsum(seg_counts)[:-1]])
-    s_max = max(1, int(seg_counts.max()) if sched.nt_c else 1)
-
     pair_dev = seg_dev[sched.seg] if sched.num_pairs else np.zeros(0, np.int64)
     p_counts = np.bincount(pair_dev, minlength=ndev)
-    p_max = max(1, int(p_counts.max()) if sched.num_pairs else 1)
-
-    pa = np.zeros((ndev, p_max), dtype=np.int32)
-    pb = np.zeros((ndev, p_max), dtype=np.int32)
-    seg = np.full((ndev, p_max), s_max, dtype=np.int32)  # padding -> dummy
-    for d in range(ndev):
-        sel = pair_dev == d
-        n = int(sel.sum())
-        pa[d, :n] = sched.pa[sel] - a_lo[d]
-        pb[d, :n] = sched.pb[sel]           # global == all-gathered index
-        seg[d, :n] = sched.seg[sel] - seg_off[d]
-
     return DistPlan(
         ndev=ndev,
-        a_val=a_val, a_occ=a_occ, b_val=b_val, b_occ=b_occ,
-        pa=pa, pb=pb, seg=seg, s_max=s_max,
+        s_max=max(1, int(seg_counts.max()) if sched.nt_c else 1),
         seg_counts=seg_counts, ctrow=sched.ctrow, ctcol=sched.ctcol,
-        schedule=sched,
+        schedule=sched, a_lo=a_lo, a_hi=a_hi,
+        nta_max=max(1, int((a_hi - a_lo).max()) if a.nt else 1),
+        # B tiles: even contiguous shard; devices all-gather at run time
+        ntb_shard=max(1, cdiv(max(b.nt, 1), ndev)),
+        seg_off=np.concatenate([[0], np.cumsum(seg_counts)[:-1]]),
+        pair_dev=pair_dev,
+        p_max=max(1, int(p_counts.max()) if sched.num_pairs else 1),
     )
 
 
+def _pack_tile_range(t: TileMat, lo: int, hi: int, n_pad: int, dtype):
+    """Dense values and bf16 0/1 occupancy of tiles [lo, hi) of `t`,
+    zero-padded to n_pad tiles: two (1, n_pad, tm, tn) host arrays.
+    bf16 occupancy is exact for 0/1 operands."""
+    hi = min(hi, t.nt)
+    lo = min(lo, hi)
+    nlo, nhi = int(t.tnnz_ptr[lo]), int(t.tnnz_ptr[hi])
+    tid = np.repeat(np.arange(hi - lo, dtype=np.int64),
+                    np.diff(t.tnnz_ptr[lo : hi + 1]).astype(np.int64))
+    flat = tid * (t.tm * t.tn) + t.rc[nlo:nhi]
+    val = np.zeros(n_pad * t.tm * t.tn, dtype=dtype)
+    occ = np.zeros(n_pad * t.tm * t.tn, dtype=jnp.bfloat16)
+    val[flat] = t.val[nlo:nhi]
+    occ[flat] = 1
+    shape = (1, n_pad, t.tm, t.tn)
+    return val.reshape(shape), occ.reshape(shape)
+
+
+def _shard_arrays(plan: DistPlan, a: TileMat, b: TileMat, d: int,
+                  dtype=np.float32) -> dict:
+    """Device d's padded slice of every plan array, each (1, ...), packed
+    from A's and B's own tiles: host memory for one shard only."""
+    sched = plan.schedule
+    a_val, a_occ = _pack_tile_range(a, int(plan.a_lo[d]), int(plan.a_hi[d]),
+                                    plan.nta_max, dtype)
+    k0 = d * plan.ntb_shard
+    b_val, b_occ = _pack_tile_range(b, k0, k0 + plan.ntb_shard,
+                                    plan.ntb_shard, dtype)
+    sel = plan.pair_dev == d
+    n = int(sel.sum())
+    pa = np.zeros((1, plan.p_max), dtype=np.int32)
+    pb = np.zeros((1, plan.p_max), dtype=np.int32)
+    seg = np.full((1, plan.p_max), plan.s_max, dtype=np.int32)  # pad -> dummy
+    pa[0, :n] = sched.pa[sel] - plan.a_lo[d]
+    pb[0, :n] = sched.pb[sel]           # global == all-gathered index
+    # pairs stay grouped by segment within a device (padding sorts last)
+    seg[0, :n] = sched.seg[sel] - plan.seg_off[d]
+    return dict(a_val=a_val, a_occ=a_occ, b_val=b_val, b_occ=b_occ,
+                pa=pa, pb=pb, seg=seg)
+
+
+def plan_row_partition(
+    a: TileMat, b: TileMat, ndev: int, dtype=np.float32
+) -> DistPlan:
+    """Partition A tile-rows (and C tile-rows with them) over `ndev`
+    devices, balancing total pair count per device, with every device's
+    padded arrays stacked on the host (place_strip_partition stages the
+    same arrays one shard at a time instead)."""
+    plan = _partition(a, b, ndev)
+    shards = [_shard_arrays(plan, a, b, d, dtype) for d in range(ndev)]
+    for name in _DIST_ARRAYS:
+        setattr(plan, name, np.concatenate([sh[name] for sh in shards]))
+    return plan
+
+
 def _device_fn(a_val, a_occ, b_val, b_occ, pa, pb, seg, *, s_max, acc_dtype):
-    """Per-shard body: all-gather B over ICI, then local pair products."""
+    """Per-shard body: all-gather B, then local pair products."""
     b_val_g = jax.lax.all_gather(b_val[0], "x", axis=0, tiled=True)
     b_occ_g = jax.lax.all_gather(b_occ[0], "x", axis=0, tiled=True)
 
@@ -310,12 +345,16 @@ def spgemm_sharded(
     mesh: Mesh,
     *,
     acc_dtype=jnp.float32,
+    inspect=None,
 ) -> TileMat:
     """Distributed C = A @ B over all devices of `mesh` (one axis "x"):
     A tile-rows partitioned per device (pair-count balanced), B slabs
-    sharded over the inner dimension and all-gathered over ICI inside the
+    sharded over the inner dimension and all-gathered inside the
     shard_map body, C tiles owner-computed with the Gustavson slab
-    formulation (no cross-device reduction)."""
+    formulation (no cross-device reduction).
+    `inspect`, when given, is called with the sharded device outputs
+    before the host assembles C (the card smoke run prints where each
+    output shard lives)."""
     from spgemm_tpu.ops.gustavson import gustavson_core
 
     ndev = mesh.devices.size
@@ -347,6 +386,8 @@ def spgemm_sharded(
         jnp.asarray(plan.b3_val), jnp.asarray(plan.b3_occ),
         jnp.asarray(plan.seg),
     )
+    if inspect is not None:
+        inspect((c_val_d, c_cnt_d))
     c_val = np.asarray(c_val_d, dtype=np.float64)
     c_cnt = np.asarray(c_cnt_d)
     keep_val = np.concatenate(
@@ -364,303 +405,44 @@ def spgemm_sharded(
     )
 
 
-# --- Distributed strip path (Pallas kernel under shard_map) ----------------
+# --- Distributed strip path (tile-pair kernel under shard_map) ------------
 
 
-@dataclasses.dataclass
-class StripDistPlan:
-    """Per-device strip plans with unified kernel geometry. Unlike round
-    1's design (one global plan sliced per device), the SYMBOLIC phase is
-    sharded: each device's plan is built from its own tile-row slab of A
-    (TileMat.slice_tile_rows + build_strip_args), so on a multi-host
-    deployment every host computes only its shard's C dictionary. B slabs
-    are packed once and shared (build_strip_args(b_packed=...)); a second
-    build pass forces the max geometry (min_geometry) onto shards that
-    came out smaller, because shard_map needs identical static shapes.
-    Both B-delivery variants shard — including the windowed kernel that
-    round 1 excluded (`window=False` restriction lifted)."""
-
-    ndev: int
-    row_lo: np.ndarray       # (D+1,) first tile-row per device
-    kwin: int | None
-    gk_total: int
-    kernel_kwargs: dict
-    # stacked per-device operands (mesh axis 0); None when the plan was
-    # built by place_strip_partition (operands live on device instead)
-    a_val: np.ndarray | None
-    a_occ: np.ndarray | None
-    b_val: np.ndarray | None  # sharded over k; all-gathered on device
-    b_occ: np.ndarray | None
-    aptr: np.ndarray | None
-    x1: np.ndarray | None    # cached: ak      | windowed: kmin
-    x2: np.ndarray | None    # cached: slots   | windowed: meta
-    gidx: np.ndarray | None  # (D, ntc_max) block-padded positions, pad 0
-    ntc: np.ndarray          # (D,) real candidates per device
-    ctrow: np.ndarray        # global candidate coords (concatenated)
-    ctcol: np.ndarray
-    num_pairs: int
-    rep_args: "object"       # one device's StripArgs (feasibility checks)
-
-
-def _strip_shard_plans(
-    a: TileMat, b: TileMat, ndev: int, *, block_rows: int = 32,
-    dtype=np.float32, window: bool | None = None,
-):
-    """Shared first half of the distributed strip planners: pair-balanced
-    tile-row slabs, one strip plan per shard (B packed once), and the
-    unified geometry every shard must agree on. Returns
-    (plans, shards, row_lo, mg, windowed, b_packed)."""
-    from spgemm_tpu.ops.gustavson import build_strip_args
-
-    # pair-balanced tile-row boundaries — no block alignment needed:
-    # every shard re-blocks its own row range from local row 0
-    bptr = b.tptr.astype(np.int64)
-    pair_per_tile = bptr[a.tcol.astype(np.int64) + 1] - bptr[a.tcol]
-    pairs_per_row = np.zeros(a.gm, dtype=np.int64)
-    np.add.at(pairs_per_row, a.trow, pair_per_tile)
-    cum = np.cumsum(pairs_per_row) if a.gm else np.zeros(1, np.int64)
-    total = int(cum[-1]) if cum.size else 0
-    bounds = np.searchsorted(cum, np.arange(1, ndev) * (total / ndev))
-    row_lo = np.concatenate([[0], np.minimum(bounds + 1, a.gm), [a.gm]])
-    row_lo = np.maximum.accumulate(row_lo)
-
-    # pass 1: per-shard plans (B packed once, shared)
-    shards = [a.slice_tile_rows(int(row_lo[d]), int(row_lo[d + 1]))
-              for d in range(ndev)]
-    plans = []
-    b_packed = None
-    for sh in shards:
-        p = build_strip_args(sh, b, block_rows=block_rows, dtype=dtype,
-                             window=window, b_packed=b_packed)
-        if b_packed is None:
-            b_packed = (p.b_val, p.b_occ)
-        plans.append(p)
-
-    # unify geometry: maxima + a consensus window mode (windowed only if
-    # every shard chose it; mixed shards rebuild cached)
-    windowed = all(p.kwin is not None for p in plans)
-    mg = dict(
-        max_ablock=max(p.max_ablock for p in plans),
-        max_cblock=max(p.max_cblock for p in plans),
-    )
-    if windowed:
-        mg["kwin"] = max(p.kwin for p in plans)
-
-    def rebuild(windowed_now):
-        for d, p in enumerate(plans):
-            same = (p.max_ablock == mg["max_ablock"]
-                    and p.max_cblock == mg["max_cblock"]
-                    and ((not windowed_now and p.kwin is None)
-                         or (windowed_now and p.kwin == mg.get("kwin"))))
-            if not same:
-                plans[d] = build_strip_args(
-                    shards[d], b, block_rows=block_rows, dtype=dtype,
-                    window=windowed_now, b_packed=b_packed,
-                    min_geometry=mg)
-
-    try:
-        rebuild(windowed)
-    except ValueError:
-        # the unified geometry (another shard's max_cblock + this
-        # shard's k-span) can overflow the windowed VMEM gate even
-        # though each shard's own plan was feasible — fall back to the
-        # cached variant for every shard
-        windowed = False
-        mg.pop("kwin", None)
-        for d in range(ndev):
-            plans[d] = build_strip_args(
-                shards[d], b, block_rows=block_rows, dtype=dtype,
-                window=False, b_packed=b_packed, min_geometry=mg)
-    return plans, shards, row_lo, mg, windowed, b_packed
-
-
-def plan_strip_partition(
-    a: TileMat, b: TileMat, ndev: int, *, block_rows: int = 32,
-    dtype=np.float32, window: bool | None = None,
-) -> StripDistPlan:
-    """Shard A by tile-row slabs (block-aligned, pair-count balanced),
-    build one strip plan per shard, unify geometry. This variant stacks
-    the padded per-device operands on the host ((D, nt_pad, tm, tk)
-    arrays + the replicated packed B) — simple, but host peak memory is
-    ~2-3x the operand footprint; `place_strip_partition` is the
-    decentralized alternative (shard-at-a-time device placement)."""
-    plans, shards, row_lo, mg, windowed, b_packed = _strip_shard_plans(
-        a, b, ndev, block_rows=block_rows, dtype=dtype, window=window)
-
-    # stacked arrays padded to common shapes
-    gm_max = max(1, max(cdiv(p.gm, block_rows) for p in plans)) * block_rows
-    nt_pad = max(p.a_val.shape[0] for p in plans)
-    tm, tk, tn = plans[0].tm, plans[0].tk, plans[0].tn
-    max_b = plans[0].max_b
-    a_val = np.zeros((ndev, nt_pad, tm, tk), dtype=plans[0].a_val.dtype)
-    a_occ = np.zeros((ndev, nt_pad, tm, tk), dtype=plans[0].a_occ.dtype)
-    aptr = np.zeros((ndev, gm_max + 1), dtype=np.int32)
-    ntc = np.array([p.nt_c for p in plans], dtype=np.int64)
-    ntc_max = max(1, int(ntc.max()))
-    gidx = np.zeros((ndev, ntc_max), dtype=np.int32)
-    if windowed:
-        mr = max(p.meta.shape[0] for p in plans)
-        bmax = max(1, cdiv(gm_max, block_rows))
-        x1 = np.zeros((ndev, bmax), dtype=np.int32)
-        x2 = np.zeros((ndev, mr, 128), dtype=np.int32)
-    else:
-        x1 = np.zeros((ndev, nt_pad), dtype=np.int32)
-        x2 = np.full((ndev, nt_pad * max_b), mg["max_cblock"],
-                     dtype=np.int32)
-    for d, p in enumerate(plans):
-        nv = p.a_val.shape[0]
-        a_val[d, :nv] = p.a_val
-        a_occ[d, :nv] = p.a_occ
-        npt = p.aptr.size
-        aptr[d, :npt] = p.aptr
-        aptr[d, npt:] = p.aptr[-1]
-        gidx[d, : p.nt_c] = p.gather_idx.astype(np.int32)
-        if windowed:
-            x1[d, : p.kmin.size] = p.kmin
-            x2[d, : p.meta.shape[0]] = p.meta
-        else:
-            x1[d, : p.ak.size] = p.ak
-            x2[d, : p.slots.size] = p.slots
-
-    # B shards over k (padded to a D multiple of the largest packed B)
-    gk_total = max(p.b_val.shape[0] for p in plans)
-    gk_shard = cdiv(gk_total, ndev)
-    bsh = b_packed[0].shape[1:]
-    flat_v = np.zeros((gk_shard * ndev,) + bsh, dtype=b_packed[0].dtype)
-    flat_o = np.zeros((gk_shard * ndev,) + bsh, dtype=b_packed[1].dtype)
-    flat_v[: b_packed[0].shape[0]] = b_packed[0]
-    flat_o[: b_packed[1].shape[0]] = b_packed[1]
-    b_val = flat_v.reshape((ndev, gk_shard) + bsh)
-    b_occ = flat_o.reshape((ndev, gk_shard) + bsh)
-
-    kw = plans[0].kernel_kwargs()
-    kw.update(gm=gm_max, max_ablock=mg["max_ablock"],
-              max_cblock=mg["max_cblock"],
-              kwin=mg.get("kwin") if windowed else None)
-    ctrow = np.concatenate(
-        [p.ctrow.astype(np.int64) + int(row_lo[d])
-         for d, p in enumerate(plans)]) if ndev else np.zeros(0, np.int64)
-    ctcol = np.concatenate([p.ctcol for p in plans])
-    return StripDistPlan(
-        ndev=ndev, row_lo=row_lo, kwin=mg.get("kwin") if windowed else None,
-        gk_total=gk_total, kernel_kwargs=kw,
-        a_val=a_val, a_occ=a_occ, b_val=b_val, b_occ=b_occ, aptr=aptr,
-        x1=x1, x2=x2, gidx=gidx, ntc=ntc,
-        ctrow=ctrow.astype(np.int64), ctcol=ctcol.astype(np.int64),
-        num_pairs=sum(p.num_pairs for p in plans), rep_args=plans[0],
-    )
-
-
-def place_strip_partition(
-    a: TileMat, b: TileMat, mesh: Mesh, *, block_rows: int = 32,
-    dtype=np.float32, window: bool | None = None,
-):
-    """Decentralized operand staging (VERDICT r2 weak #8): build each
-    device's padded operand slice ON DEMAND, `jax.device_put` it to that
-    device, and free the host copy before touching the next shard —
-    instead of materializing the full (D, nt_pad, tm, tk) host stacks
-    plus a D-padded replicated B. Host peak holds ONE padded shard (plus
-    the shared packed B, which exists once regardless).
-
-    Returns (arrays, plan) where `arrays` is the 8-tuple of global
-    jax.Arrays (sharded over mesh axis "x") that spgemm_sharded_strip's
-    device function consumes, and `plan` carries the host-side metadata
-    (row_lo, ctrow/ctcol, ntc, kernel kwargs). The per-device assembly
-    uses jax.make_array_from_single_device_arrays — the same mechanism a
-    multi-host deployment uses for its addressable shards
-    (see init_multihost)."""
+def place_strip_partition(a: TileMat, b: TileMat, mesh: Mesh,
+                          dtype=np.float32):
+    """Decentralized operand staging: plan the partition on the host
+    (pair schedule and per-device bounds), then build each device's
+    padded slice of every plan array ON DEMAND, `jax.device_put` it to
+    that device and free the host copy before building the next one.
+    Host peak holds ONE padded shard instead of the (D, ...) stacks of
+    plan_row_partition. Global arrays sharded over mesh axis "x" are
+    assembled with jax.make_array_from_single_device_arrays — the
+    mechanism a multi-host deployment uses for its addressable shards
+    (see init_multihost). Returns (arrays, plan) for
+    spgemm_sharded_strip(placed=...); the plan's stacked arrays stay
+    None."""
     from jax.sharding import NamedSharding
 
     ndev = mesh.devices.size
     devices = list(mesh.devices.flat)
-    plans, shards, row_lo, mg, windowed, b_packed = _strip_shard_plans(
-        a, b, ndev, block_rows=block_rows, dtype=dtype, window=window)
-
-    gm_max = max(1, max(cdiv(p.gm, block_rows) for p in plans)) * block_rows
-    nt_pad = max(p.a_val.shape[0] for p in plans)
-    tm, tk, tn = plans[0].tm, plans[0].tk, plans[0].tn
-    max_b = plans[0].max_b
-    ntc = np.array([p.nt_c for p in plans], dtype=np.int64)
-    ntc_max = max(1, int(ntc.max()))
-    if windowed:
-        mr = max(p.meta.shape[0] for p in plans)
-        bmax = max(1, cdiv(gm_max, block_rows))
-    gk_total = max(p.b_val.shape[0] for p in plans)
-    gk_shard = cdiv(gk_total, ndev)
-    bsh = b_packed[0].shape[1:]
-
-    def shard_arrays(d):
-        """Padded operand slices for device d (host arrays, freed by the
-        caller after device_put)."""
-        p = plans[d]
-        a_val = np.zeros((1, nt_pad, tm, tk), dtype=p.a_val.dtype)
-        a_occ = np.zeros((1, nt_pad, tm, tk), dtype=p.a_occ.dtype)
-        nv = p.a_val.shape[0]
-        a_val[0, :nv] = p.a_val
-        a_occ[0, :nv] = p.a_occ
-        aptr = np.zeros((1, gm_max + 1), dtype=np.int32)
-        npt = p.aptr.size
-        aptr[0, :npt] = p.aptr
-        aptr[0, npt:] = p.aptr[-1]
-        gidx = np.zeros((1, ntc_max), dtype=np.int32)
-        gidx[0, : p.nt_c] = p.gather_idx.astype(np.int32)
-        if windowed:
-            x1 = np.zeros((1, bmax), dtype=np.int32)
-            x1[0, : p.kmin.size] = p.kmin
-            x2 = np.zeros((1, mr, 128), dtype=np.int32)
-            x2[0, : p.meta.shape[0]] = p.meta
-        else:
-            x1 = np.zeros((1, nt_pad), dtype=np.int32)
-            x1[0, : p.ak.size] = p.ak
-            x2 = np.full((1, nt_pad * max_b), mg["max_cblock"],
-                         dtype=np.int32)
-            x2[0, : p.slots.size] = p.slots
-        # this device's k-slab of the shared packed B (sliced view — no
-        # second full-B host copy)
-        k0, k1 = d * gk_shard, (d + 1) * gk_shard
-        b_val = np.zeros((1, gk_shard) + bsh, dtype=b_packed[0].dtype)
-        b_occ = np.zeros((1, gk_shard) + bsh, dtype=b_packed[1].dtype)
-        src_v = b_packed[0][k0:k1]
-        src_o = b_packed[1][k0:k1]
-        b_val[0, : src_v.shape[0]] = src_v
-        b_occ[0, : src_o.shape[0]] = src_o
-        return (a_val, a_occ, b_val, b_occ, aptr, x1, x2, gidx)
-
-    names = ("a_val", "a_occ", "b_val", "b_occ", "aptr", "x1", "x2",
-             "gidx")
-    per_dev: list = [[] for _ in names]
+    plan = _partition(a, b, ndev)
     proc = jax.process_index()
+    per_dev: dict = {name: [] for name in _DIST_ARRAYS}
+    shapes = {}
     for d in range(ndev):
         if devices[d].process_index != proc:
             continue  # multi-host: build ONLY this host's shards
-        host = shard_arrays(d)
-        for i, arr in enumerate(host):
-            per_dev[i].append(jax.device_put(arr, devices[d]))
+        host = _shard_arrays(plan, a, b, d, dtype)
+        for name, arr in host.items():
+            per_dev[name].append(jax.device_put(arr, devices[d]))
+            shapes[name] = (ndev,) + arr.shape[1:]
         del host  # free this shard's host copy before the next one
-    jax.block_until_ready([buf[-1] for buf in per_dev])
+    jax.block_until_ready(per_dev)
     sharding = NamedSharding(mesh, P("x"))
     arrays = tuple(
         jax.make_array_from_single_device_arrays(
-            (ndev,) + bufs[0].shape[1:], sharding, bufs)
-        for bufs in per_dev)
-
-    kw = plans[0].kernel_kwargs()
-    kw.update(gm=gm_max, max_ablock=mg["max_ablock"],
-              max_cblock=mg["max_cblock"],
-              kwin=mg.get("kwin") if windowed else None)
-    ctrow = np.concatenate(
-        [p.ctrow.astype(np.int64) + int(row_lo[d])
-         for d, p in enumerate(plans)]) if ndev else np.zeros(0, np.int64)
-    ctcol = np.concatenate([p.ctcol for p in plans])
-    plan = StripDistPlan(
-        ndev=ndev, row_lo=row_lo,
-        kwin=mg.get("kwin") if windowed else None,
-        gk_total=gk_total, kernel_kwargs=kw,
-        a_val=None, a_occ=None, b_val=None, b_occ=None, aptr=None,
-        x1=None, x2=None, gidx=None, ntc=ntc,
-        ctrow=ctrow.astype(np.int64), ctcol=ctcol.astype(np.int64),
-        num_pairs=sum(p.num_pairs for p in plans), rep_args=plans[0],
-    )
+            shapes[name], sharding, per_dev[name])
+        for name in _DIST_ARRAYS)
     return arrays, plan
 
 
@@ -670,19 +452,18 @@ def init_multihost(coordinator_address: str | None = None,
     """Multi-host entry point (SURVEY.md 5's multihost_utils
     orchestration): initialize the JAX distributed runtime, after which
     `jax.devices()` spans all hosts and a Mesh over it drives the same
-    shard_map paths. Each host then builds ONLY its addressable shards:
+    shard_map paths. Every host computes the (global) pair schedule, then
+    packs and places ONLY its addressable shards:
 
         init_multihost("host0:1234", num_processes=H, process_id=h)
         mesh = make_mesh(len(jax.devices()))
         arrays, plan = place_strip_partition(a, b, mesh)   # this host
         c = spgemm_sharded_strip(a, b, mesh, placed=(arrays, plan))
 
-    place_strip_partition's device_put loop only touches addressable
-    devices on a multi-host mesh (jax.make_array_from_single_device_
-    arrays assembles the global array from per-host locals). Only
-    single-process initialization is exercisable in this environment
-    (one physical chip); the call is a no-op when the runtime is already
-    initialized. Returns the process count."""
+    place_strip_partition's packing loop skips devices of other
+    processes (jax.make_array_from_single_device_arrays assembles the
+    global array from per-host locals). The call is a no-op for a single
+    process. Returns the process count."""
     import jax
 
     if num_processes in (None, 1) and coordinator_address is None:
@@ -700,115 +481,86 @@ def spgemm_sharded_strip(
     b: TileMat,
     mesh: Mesh,
     *,
-    block_rows: int = 32,
-    acc_dtype=jnp.float32,
-    interpret: bool | None = None,
-    window: bool | None = None,
     placed=None,
+    inspect=None,
 ) -> TileMat:
-    """Distributed C = A @ B running the production Pallas strip kernel
-    per shard: A tile-row slabs partitioned per device (symbolic phase
-    sharded with them), B slabs all-gathered over ICI inside the
-    shard_map body, C owner-computed and compacted ON DEVICE (candidate
-    gather + occupancy bit-pack) before the host sees it (SURVEY.md 2.7's
-    north-star decomposition). Windowed and cached B delivery both work.
+    """Distributed C = A @ B through the single-device structured route
+    per shard: A tile-rows partitioned per device (pair-count balanced),
+    B tiles all-gathered inside the shard_map body, and each shard's
+    candidate C tiles computed by the XLA pair products (ops/strip.py).
+    Occupancy is bit-packed on the device before the host sees it.
 
     `placed` accepts the (arrays, plan) pair from place_strip_partition
-    (decentralized staging: operands already device-resident, host peak
-    ~1 shard instead of D stacked copies)."""
-    from spgemm_tpu.ops.gustavson import check_strip_feasible
-    from spgemm_tpu.ops.pallas_kernels import gustavson_strip_pallas
+    (operands already device-resident, each host holding only its own
+    shards); without it the operands are staged the same way here.
+    `inspect`, when given, is called with the sharded device outputs
+    before the host assembles C (the card smoke run prints where each
+    output shard lives)."""
+    from spgemm_tpu.ops.numeric import pair_accumulate
     from spgemm_tpu.ops.spgemm import _compact_to_tilemat
+    from spgemm_tpu.ops.strip import pack_occupancy, unpack_occupancy
 
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
     ndev = mesh.devices.size
-    if placed is not None:
-        placed_arrays, plan = placed
-    else:
-        placed_arrays = None
-        plan = plan_strip_partition(a, b, ndev, block_rows=block_rows,
-                                    window=window)
-    slot_entries = None if plan.kwin is not None else int(plan.x2.shape[1])
-    check_strip_feasible(plan.rep_args, interpret,
-                         slot_entries=slot_entries)
-    gk = plan.gk_total
+    arrays, plan = placed if placed is not None else place_strip_partition(
+        a, b, mesh)
     tm, tn = a.tm, b.tn
     pack_bits = tn % 32 == 0
-    kernel_kwargs = dict(plan.kernel_kwargs,
-                         acc_dtype=acc_dtype, interpret=interpret)
+    s_max = plan.s_max
 
-    def device_fn(av, ao, bv, bo, aptr, x1, x2, gidx):
-        bv_g = jax.lax.all_gather(bv[0], "x", axis=0, tiled=True)[:gk]
-        bo_g = jax.lax.all_gather(bo[0], "x", axis=0, tiled=True)[:gk]
-        cv, cc = gustavson_strip_pallas(
-            av[0], ao[0], bv_g, bo_g, aptr[0], x1[0], x2[0],
-            **kernel_kwargs,
-        )
-        # per-shard device compaction — same helper as the single-device
-        # path (gustavson.strip_compact_device)
-        if pack_bits:
-            from spgemm_tpu.ops.gustavson import strip_compact_device
-
-            v, oc = strip_compact_device(cv, cc, gidx[0])
-        else:
-            v = jnp.take(cv, gidx[0], axis=0)
-            oc = (jnp.take(cc, gidx[0], axis=0) > 0).astype(jnp.float32)
-        return v[None], oc[None]
+    def device_fn(av, ao, bv, bo, pa, pb, seg):
+        bv_g = jax.lax.all_gather(bv[0], "x", axis=0, tiled=True)
+        bo_g = jax.lax.all_gather(bo[0], "x", axis=0, tiled=True)
+        cv, cc = pair_accumulate(av[0], ao[0], bv_g, bo_g, pa[0], pb[0],
+                                 seg[0], num_segments=s_max,
+                                 chunk=max(1, pa.shape[1]))
+        oc = pack_occupancy(cc) if pack_bits else (cc > 0).astype(
+            jnp.float32)
+        return cv[None], oc[None]
 
     fn = jax.jit(
         jax.shard_map(
             device_fn,
             mesh=mesh,
-            in_specs=(P("x"),) * 8,
+            in_specs=(P("x"),) * 7,
             out_specs=(P("x"), P("x")),
             check_vma=False,
         )
     )
-    if placed_arrays is not None:
-        v_d, occ_d = fn(*placed_arrays)
-    else:
-        v_d, occ_d = fn(
-            jnp.asarray(plan.a_val), jnp.asarray(plan.a_occ),
-            jnp.asarray(plan.b_val), jnp.asarray(plan.b_occ),
-            jnp.asarray(plan.aptr), jnp.asarray(plan.x1),
-            jnp.asarray(plan.x2), jnp.asarray(plan.gidx),
-        )
+    v_d, occ_d = fn(*arrays)
+    if inspect is not None:
+        inspect((v_d, occ_d))
     if jax.process_count() > 1:
         # multi-host: the outputs are global arrays whose shards live on
         # other hosts; gather them so every host assembles the full C
         # (tests/test_multihost.py exercises this across 2 real
-        # processes — production pattern-static serving would keep the
-        # result sharded instead of materializing it per host)
+        # processes — pattern-static serving would keep the result
+        # sharded instead of materializing it per host)
         from jax.experimental import multihost_utils
 
         v_d = multihost_utils.process_allgather(v_d, tiled=True)
         occ_d = multihost_utils.process_allgather(occ_d, tiled=True)
     v = np.asarray(v_d)
-    if pack_bits:
-        from spgemm_tpu.ops.gustavson import unpack_occ_words
-
-        occ = np.concatenate(
-            [unpack_occ_words(np.asarray(occ_d[d]), tn)[: plan.ntc[d]]
-             for d in range(ndev)]) if plan.ctrow.size else             np.zeros((0, tm, tn), bool)
+    occ_h = np.asarray(occ_d)
+    counts = plan.seg_counts
+    if plan.ctrow.size:
+        keep_val = np.concatenate([v[d, : counts[d]] for d in range(ndev)])
+        occ = np.concatenate([
+            (unpack_occupancy(occ_h[d], tn) if pack_bits
+             else occ_h[d] > 0)[: counts[d]] for d in range(ndev)])
     else:
-        occ = np.concatenate(
-            [np.asarray(occ_d[d])[: plan.ntc[d]]
-             for d in range(ndev)]) if plan.ctrow.size else             np.zeros((0, tm, tn), np.float32)
-    keep_val = np.concatenate(
-        [v[d, : plan.ntc[d]] for d in range(ndev)]) if plan.ctrow.size         else np.zeros((0, tm, tn))
-
+        keep_val = np.zeros((0, tm, tn))
+        occ = np.zeros((0, tm, tn), bool)
     return _compact_to_tilemat(
-        plan.ctrow.astype(np.int32), plan.ctcol.astype(np.int32),
-        keep_val.astype(np.float64), occ.astype(np.float32),
-        (a.m, b.n), tm, tn,
+        plan.ctrow, plan.ctcol, keep_val.astype(np.float64),
+        occ.astype(np.float32), (a.m, b.n), tm, tn,
     )
 
 
 # --- Distributed ESC (unstructured engine) ---------------------------------
 
 
-def spgemm_sharded_esc(a_csr, b_csr, mesh: Mesh, *, plan=None):
+def spgemm_sharded_esc(a_csr, b_csr, mesh: Mesh, *, plan=None,
+                       inspect=None):
     """Distributed unstructured SpGEMM through the ESC scan engine.
 
     The scan layout is embarrassingly parallel: rows of the (R, 128)
@@ -820,10 +572,13 @@ def spgemm_sharded_esc(a_csr, b_csr, mesh: Mesh, *, plan=None):
 
     This is the multi-chip face of the nsparse replacement: the
     reference is single-GPU; here the unstructured engine scales the
-    same way the strip path does (SURVEY.md 2.7)."""
+    same way the strip path does (SURVEY.md 2.7).
+    `inspect`, when given, is called with the sharded device outputs
+    before the host assembles C (the card smoke run prints where each
+    output shard lives)."""
     from spgemm_tpu.models.csr import CSR
-    from spgemm_tpu.ops.esc import (SCAN_BLK, build_esc_scan_plan,
-                                    esc_scan_pallas)
+    from spgemm_tpu.ops.esc import (ROW_ALIGN, build_esc_scan_plan,
+                                    esc_scan_reduce)
 
     if plan is None:
         plan = build_esc_scan_plan(a_csr, b_csr, keep_sources=False)
@@ -832,14 +587,16 @@ def spgemm_sharded_esc(a_csr, b_csr, mesh: Mesh, *, plan=None):
     if plan.num_products == 0:
         return CSR(plan.c_indptr.astype(INDEX_DTYPE), plan.c_indices,
                    np.zeros(plan.nnz_c), plan.shape)
-    # shard boundaries: window-aligned, padded to the kernel block and
-    # equal per device (shard_map needs uniform shapes)
-    shard_rows = -(-r_total // (ndev * SCAN_BLK)) * SCAN_BLK
-    r_pad = shard_rows * ndev
-    # windows must not straddle shards: place each window's rows into
-    # the shard owning its first row; win_rowptr rows are contiguous
+    # shard boundaries: window-aligned, equal per device (shard_map needs
+    # uniform shapes). Windows go whole to the device owning their first
+    # row at stride `part`, so a device's slab holds up to `part` rows
+    # plus one window's overhang.
     wr = plan.win_rowptr
-    dev_of_win = np.minimum(wr[:-1] // shard_rows, ndev - 1)
+    part = max(1, -(-r_total // ndev))
+    max_win = int(np.diff(wr).max()) if wr.size > 1 else 0
+    shard_rows = -(-(part + max_win) // ROW_ALIGN) * ROW_ALIGN
+    r_pad = shard_rows * ndev
+    dev_of_win = np.minimum(wr[:-1] // part, ndev - 1)
     # new row position: within-device repack (windows stay in order,
     # vectorized: per-device exclusive cumsum of window row counts)
     rows_per_win = np.diff(wr)
@@ -872,28 +629,26 @@ def spgemm_sharded_esc(a_csr, b_csr, mesh: Mesh, *, plan=None):
     qv[new_rows] = plan.qv[: old_rows.size]
     meta[new_rows] = src_meta[: old_rows.size]
 
-    interpret = jax.default_backend() == "cpu"
-
     grows = plan.group_rows
 
     def device_fn(qv, meta):
-        return esc_scan_pallas(qv[0], meta[0], passes=plan.passes,
-                               group_rows=grows,
-                               interpret=interpret)[None]
+        return esc_scan_reduce(qv[0], meta[0], passes=plan.passes,
+                               group_rows=grows)[None]
 
     fn = jax.jit(jax.shard_map(
         device_fn, mesh=mesh,
         in_specs=(P("x"), P("x")), out_specs=P("x"),
         check_vma=False,
     ))
-    out = np.asarray(fn(
-        jnp.asarray(qv.reshape(ndev, shard_rows, 128)),
-        jnp.asarray(meta.reshape(ndev, shard_rows, 128)),
-    ), np.float64).reshape(r_pad // grows, 128)
+    out_d = fn(jnp.asarray(qv.reshape(ndev, shard_rows, 128)),
+               jnp.asarray(meta.reshape(ndev, shard_rows, 128)))
+    if inspect is not None:
+        inspect((out_d,))
+    out = np.asarray(out_d, np.float64).reshape(r_pad // grows, 128)
 
     c_val = np.zeros(plan.nnz_c, np.float64)
     if plan.nnz_c:
-        # shard boundaries and window starts are SCAN_BLK/G-aligned, so
+        # shard boundaries and window starts are ROW_ALIGN/G-aligned, so
         # dividing the group-reduced row indices by G keeps the reduceat
         sums = np.add.reduceat(out, new_start // grows, axis=0) \
             if new_start.size else out[:0]
@@ -914,6 +669,7 @@ def spgemm_sharded_ring(
     mesh: Mesh,
     *,
     acc_dtype=jnp.float32,
+    inspect=None,
 ) -> TileMat:
     """Distributed C = A @ B with B rotated around the ring instead of
     all-gathered: each device holds one B k-shard at a time, computes the
@@ -921,7 +677,10 @@ def spgemm_sharded_ring(
     passes the shard to its neighbour with `lax.ppermute` (the north-star
     spec's halo-exchange formulation, SURVEY.md §2.7). Peak per-device B
     memory is one shard (1/D of the all-gather variant), and each step's
-    compute overlaps the next rotation under XLA's scheduler."""
+    compute overlaps the next rotation under XLA's scheduler.
+    `inspect`, when given, is called with the sharded device outputs
+    before the host assembles C (the card smoke run prints where each
+    output shard lives)."""
     from spgemm_tpu.ops.gustavson import gustavson_core
 
     ndev = mesh.devices.size
@@ -983,6 +742,8 @@ def spgemm_sharded_ring(
         jnp.asarray(plan.b3_val), jnp.asarray(plan.b3_occ),
         jnp.asarray(seg),
     )
+    if inspect is not None:
+        inspect((c_val_d, c_cnt_d))
     c_val = np.asarray(c_val_d, dtype=np.float64)
     c_cnt = np.asarray(c_cnt_d)
     keep_val = np.concatenate(
@@ -1033,7 +794,7 @@ def plan_ozaki_partition(a: TileMat, b: TileMat, ndev: int) -> OzakiDistPlan:
     Slice counts are unified to the max over shards (shard_map needs
     identical static shapes); the padding slices are exact zeros. B is
     sliced once against its GLOBAL per-column scales (identical on every
-    shard) and sharded over k, all-gathered over ICI on device."""
+    shard) and sharded over k, all-gathered on device."""
     from spgemm_tpu.ops.gustavson import build_gustavson_plan
     from spgemm_tpu.ops.ozaki import slice_and_pack
 
@@ -1113,15 +874,19 @@ def plan_ozaki_partition(a: TileMat, b: TileMat, ndev: int) -> OzakiDistPlan:
     )
 
 
-def spgemm_sharded_ozaki(a: TileMat, b: TileMat, mesh: Mesh):
+def spgemm_sharded_ozaki(a: TileMat, b: TileMat, mesh: Mesh, *,
+                         inspect=None):
     """Distributed EXACT-f64 C = A @ B over `mesh` (axis "x") through
     the Ozaki-slice engine (ops/ozaki.py): A tile-rows partitioned per
     device, int8 B slice stacks sharded over the inner dimension and
-    all-gathered over ICI inside the shard_map body, C tiles
+    all-gathered inside the shard_map body, C tiles
     owner-computed (no cross-device reduction). The f64 scaling epilogue
     runs on host per shard. Completes the engines' SPMD coverage: the
     reference has no f64-distributed counterpart (it is single-GPU,
-    SURVEY 2.7)."""
+    SURVEY 2.7).
+    `inspect`, when given, is called with the sharded device outputs
+    before the host assembles C (the card smoke run prints where each
+    output shard lives)."""
     from spgemm_tpu.ops.ozaki import ozaki_core
 
     ndev = mesh.devices.size
@@ -1156,6 +921,8 @@ def spgemm_sharded_ozaki(a: TileMat, b: TileMat, mesh: Mesh):
         jnp.asarray(plan.b_sl), jnp.asarray(plan.b_occ),
         jnp.asarray(plan.seg),
     )
+    if inspect is not None:
+        inspect((h_d, m_d, l_d, cnt_d))
     h_np = np.asarray(h_d, np.float64)
     m_np = np.asarray(m_d, np.float64)
     l_np = np.asarray(l_d, np.float64)

@@ -1,7 +1,7 @@
 """Synthetic matrix generators spanning the reference's structural
-regimes (SuiteSparse is unreachable in this zero-egress environment;
-these stand in for the `data/run18.sh`/`run142.sh` matrix lists).
-Shared by tools/run_suite.py, examples, and tests."""
+regimes (stand-ins for the `data/run18.sh`/`run142.sh` SuiteSparse
+matrix lists, generated in the repo from a seed). Shared by bench.py,
+chip_smoke.py, tools/run_suite.py, examples, and tests."""
 
 from __future__ import annotations
 
@@ -19,6 +19,26 @@ def banded(rng, n, band, fill=0.5):
     return CSR.from_coo(r[keep], c[keep],
                         rng.integers(1, 10, keep.sum()).astype(np.float64),
                         (n, n))
+
+
+CANT_ROWS, CANT_BAND = 62451, 64
+
+
+def cantlike(rows: int = CANT_ROWS, band: int = CANT_BAND):
+    """Deterministic stand-in for SuiteSparse cant (62,451^2): a +-band
+    band with about half its entries kept by a hash, ~(band+0.5) nnz per
+    row, integer values 1..9 — at the defaults ~4.0 M nnz and nnzCub
+    ~2.6e8, close to cant's 2.69e8 (BASELINE.md)."""
+    from spgemm_tpu.models.csr import CSR
+
+    offs = np.arange(-band, band + 1, dtype=np.int64)
+    r = np.repeat(np.arange(rows, dtype=np.int64), offs.size)
+    c = r + np.tile(offs, rows)
+    keep = (c >= 0) & (c < rows) & (((r * 31 + c * 17) & 3) < 2)
+    keep |= r == c
+    r, c = r[keep], c[keep]
+    vals = ((r * 7 + c * 13) % 9 + 1).astype(np.float64)
+    return CSR.from_coo(r, c, vals, (rows, rows))
 
 
 def block_diag(rng, n, bs=64, fill=0.3):

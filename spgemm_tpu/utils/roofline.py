@@ -4,12 +4,13 @@ The north-star spec asks for roofline accounting per kernel
 (BASELINE.json). For the tile-pair numeric step:
 
   useful FLOPs      = 2 * nnzCub                  (the reference's GFLOPS base)
-  executed FLOPs    = 2 * num_pairs * tm * tk * tn  (x2 with the occupancy
-                      matmul fused in)
+  executed FLOPs    = 2 * num_pairs * tm * tk * tn  in f32, plus the same
+                      again in bf16 for the occupancy pass
   bytes (min)       = pair-streamed A+B tiles + C tiles written once
 
-Speed-of-light time = max(flops/peak_flops, bytes/peak_bw). Peaks default
-to TPU v5e single-chip specs and can be overridden.
+Speed-of-light time = max(flop time at the peaks, bytes / peak bandwidth).
+Peaks come from one table keyed by the device's `device_kind`; a device
+that is not in it is an error, not a default.
 """
 
 from __future__ import annotations
@@ -17,20 +18,31 @@ from __future__ import annotations
 import dataclasses
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class ChipSpec:
     name: str
-    peak_flops_f32: float   # FLOP/s
+    peak_flops_f32: float   # FLOP/s outside the tensor cores
+    peak_flops_tf32: float  # FLOP/s, tensor cores, dense
+    peak_flops_bf16: float  # FLOP/s, tensor cores, dense
     peak_hbm_bw: float      # bytes/s
 
-    @staticmethod
-    def v5e() -> "ChipSpec":
-        # v5e: 197 TFLOPs bf16, ~half for f32 MXU passes; HBM ~819 GB/s
-        return ChipSpec("tpu-v5e", 98.5e12, 819e9)
 
-    @staticmethod
-    def v5p() -> "ChipSpec":
-        return ChipSpec("tpu-v5p", 229.5e12, 2765e9)
+# NVIDIA's H100 SXM data sheet, dense rates without sparsity, at the
+# full 700 W power limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": ChipSpec("NVIDIA H100 80GB HBM3", 67e12,
+                                      495e12, 989e12, 3.35e12),
+}
+
+
+def chip_spec(device_kind: str) -> ChipSpec:
+    """Published peaks of the device JAX reports as `device_kind`."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no peak table entry for device kind {device_kind!r}; add "
+            "its published rates to utils/roofline.py:PEAKS") from None
 
 
 @dataclasses.dataclass
@@ -63,12 +75,11 @@ def numeric_step_roofline(
     tn: int,
     nnz_cub: int,
     nt_c: int,
+    chip: ChipSpec,
     attained_ms: float | None = None,
-    chip: ChipSpec | None = None,
     bytes_per_elem: int = 4,
     with_occupancy_pass: bool = True,
 ) -> RooflineReport:
-    chip = chip or ChipSpec.v5e()
     mults = num_pairs * tm * tk * tn
     executed = 2.0 * mults * (2 if with_occupancy_pass else 1)
     useful = 2.0 * nnz_cub
@@ -81,7 +92,10 @@ def numeric_step_roofline(
         2 if with_occupancy_pass else 1
     )
     total_bytes = a_b_bytes + c_bytes
-    sol_s = max(executed / chip.peak_flops_f32, total_bytes / chip.peak_hbm_bw)
+    flop_s = 2.0 * mults / chip.peak_flops_f32
+    if with_occupancy_pass:
+        flop_s += 2.0 * mults / chip.peak_flops_bf16
+    sol_s = max(flop_s, total_bytes / chip.peak_hbm_bw)
     eff = None
     if attained_ms is not None and attained_ms > 0:
         eff = (sol_s * 1e3) / attained_ms

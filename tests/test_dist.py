@@ -89,7 +89,7 @@ def test_sharded_strip_matches_golden(make_random_csr):
     at = csr_to_tiles(a, 8, 16)
     bt = csr_to_tiles(a, 16, 16)
     mesh = make_mesh(4)
-    c = spgemm_sharded_strip(at, bt, mesh, block_rows=2)
+    c = spgemm_sharded_strip(at, bt, mesh)
     ref = golden.spgemm_dense_row(a, a)
     got = tiles_to_csr(c)
     assert got.pattern_equal(ref)
@@ -97,8 +97,6 @@ def test_sharded_strip_matches_golden(make_random_csr):
 
 
 def test_strip_partition_balances_pairs(make_random_csr):
-    from spgemm_tpu.parallel.dist import plan_strip_partition
-
     # skewed matrix: heavy band in the first rows
     import numpy as np
     from spgemm_tpu.models.csr import CSR
@@ -113,18 +111,16 @@ def test_strip_partition_balances_pairs(make_random_csr):
     at = csr_to_tiles(a, 8, 16)
     bt = csr_to_tiles(a, 16, 16)
     ndev = 4
-    plan = plan_strip_partition(at, bt, ndev, block_rows=2)
-    # pairs per device from tile-row ownership
-    bptr = bt.tptr.astype(np.int64)
-    ppt = bptr[at.tcol + 1] - bptr[at.tcol]
-    pairs_per_row = np.zeros(at.gm, dtype=np.int64)
-    np.add.at(pairs_per_row, at.trow, ppt)
-    cum = np.concatenate([[0], np.cumsum(pairs_per_row)])
-    per_dev = [int(cum[plan.row_lo[d + 1]] - cum[plan.row_lo[d]])
-               for d in range(ndev)]
+    plan = plan_row_partition(at, bt, ndev)
+    # pairs per device: the real (non-padding) pairs of each shard
+    per_dev = [int((plan.seg[d] < plan.s_max).sum()) for d in range(ndev)]
     total = sum(per_dev)
-    assert total == plan.num_pairs
-    # no device should carry more than ~2x the fair share (block
+    assert total == plan.schedule.num_pairs
+    # every shard's pairs stay grouped by segment, real pairs first
+    for d in range(ndev):
+        assert np.all(np.diff(plan.seg[d]) >= 0)
+        assert np.all(plan.seg[d, : per_dev[d]] < plan.seg_counts[d])
+    # no device should carry more than ~2x the fair share (tile-row
     # granularity limits precision on tiny inputs)
     assert max(per_dev) <= 2.2 * total / ndev
 
@@ -157,14 +153,13 @@ def test_sharded_ring_8dev(make_random_csr):
 
 
 def test_sharded_strip_windowed(make_random_csr):
-    """The windowed B-delivery variant shards too (round 1 forced
-    window=False in the distributed path)."""
+    """The strip numeric phase under shard_map on a banded matrix,
+    against scipy."""
     import numpy as np
 
     from spgemm_tpu.models.csr import CSR
     from spgemm_tpu.ops import golden
-    from spgemm_tpu.parallel.dist import (make_mesh, plan_strip_partition,
-                                          spgemm_sharded_strip)
+    from spgemm_tpu.parallel.dist import make_mesh, spgemm_sharded_strip
 
     n, band = 256, 6
     offs = np.arange(-band, band + 1)
@@ -174,12 +169,9 @@ def test_sharded_strip_windowed(make_random_csr):
     a = CSR.from_coo(r[keep], c[keep],
                      np.random.default_rng(5).standard_normal(int(keep.sum())),
                      (n, n))
-    at = csr_to_tiles(a, 8, 16)
-    bt = csr_to_tiles(a, 16, 16)
-    plan = plan_strip_partition(at, bt, 4, block_rows=2, window=True)
-    assert plan.kwin is not None  # the windowed variant was actually used
-    ct = spgemm_sharded_strip(at, bt, make_mesh(4), block_rows=2,
-                              window=True)
+    at = csr_to_tiles(a, 16, 32)
+    bt = csr_to_tiles(a, 32, 32)
+    ct = spgemm_sharded_strip(at, bt, make_mesh(4))
     ref = golden.spgemm_scipy(a, a)
     got = golden.drop_explicit_zeros(ct.to_csr())
     assert got.pattern_equal(ref)
@@ -227,18 +219,18 @@ def test_sharded_esc_rect_and_dup(make_random_csr):
 
 
 def test_place_strip_partition_lazy(make_random_csr):
-    """Decentralized staging: shard-at-a-time device placement must give
-    the same result as the stacked-host-array path, with host peak far
-    below it (no (D, nt_pad, ...) stacks, no D-padded replicated B)."""
+    """Decentralized staging: shard-at-a-time device placement gives the
+    same result as the stacked-host-array path, with a host peak far
+    below it (no (D, ...) host stacks kept or built)."""
     import tracemalloc
 
+    from spgemm_tpu.models.csr import CSR
     from spgemm_tpu.models.tile import csr_to_tiles
     from spgemm_tpu.ops import golden
     from spgemm_tpu.parallel.dist import (make_mesh, place_strip_partition,
-                                          plan_strip_partition,
+                                          plan_row_partition,
+                                          spgemm_sharded_pairs,
                                           spgemm_sharded_strip)
-
-    from spgemm_tpu.models.csr import CSR
 
     nb = 512
     offs = np.arange(-24, 25)
@@ -254,24 +246,29 @@ def test_place_strip_partition_lazy(make_random_csr):
     mesh = make_mesh(8)
 
     tracemalloc.start()
-    arrays, plan = place_strip_partition(at, bt, mesh, block_rows=4)
+    arrays, plan = place_strip_partition(at, bt, mesh)
     _, lazy_peak = tracemalloc.get_traced_memory()
     tracemalloc.stop()
     assert plan.a_val is None  # no stacked host copies retained
 
     tracemalloc.start()
-    stacked = plan_strip_partition(at, bt, 8, block_rows=4)
+    plan_row_partition(at, bt, 8)
     _, stack_peak = tracemalloc.get_traced_memory()
     tracemalloc.stop()
     # the lazy path holds at most one padded shard at a time
     assert lazy_peak < 0.7 * stack_peak, (lazy_peak, stack_peak)
 
-    ct = spgemm_sharded_strip(at, bt, mesh, block_rows=4,
-                              placed=(arrays, plan))
+    for arr, d in zip(arrays[0].addressable_shards, mesh.devices.flat):
+        assert arr.device == d and arr.data.shape[0] == 1
+    ct = spgemm_sharded_strip(at, bt, mesh, placed=(arrays, plan))
     ref = golden.spgemm_scipy(a, a)
     got = golden.drop_explicit_zeros(ct.to_csr())
     assert got.pattern_equal(ref)
     np.testing.assert_allclose(got.data, ref.data, rtol=1e-5, atol=1e-7)
+    stacked = golden.drop_explicit_zeros(
+        spgemm_sharded_pairs(at, bt, mesh).to_csr())
+    assert stacked.pattern_equal(got)
+    np.testing.assert_array_equal(stacked.data, got.data)
 
 
 def test_init_multihost_single_process():

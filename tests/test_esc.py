@@ -1,7 +1,8 @@
 """Tests for the digit-ESC unstructured engine (ops/esc.py) — the
-nsparse-replacement path (`/root/reference/src/spgemm_nsparse_kernel.h`).
+nsparse-replacement path (`src/spgemm_nsparse_kernel.h`).
 All run on CPU (conftest forces jax_platforms=cpu); the engine is pure
-XLA ops, so CPU execution exercises the same computation graph as TPU."""
+XLA ops, so CPU execution exercises the same computation graph as the
+GPU."""
 
 import numpy as np
 import pytest
@@ -166,7 +167,7 @@ def test_spgemm_csr_esc_errors():
 def test_time_esc_runs():
     a = rand_csr(256, 256, 2000, seed=14)
     plan = build_esc_plan(a, a)
-    ms, rtt = time_esc(plan, loop=3, repeats=1)
+    ms = time_esc(plan, loop=3, repeats=1)
     assert ms >= 0.0
 
 
@@ -243,7 +244,7 @@ def test_scan_native_plan_arrays_exact(keep_sources, group_rows):
     np.testing.assert_array_equal(ci_n, ci_r)
     np.testing.assert_array_equal(cx_n, cx_r)
     np.testing.assert_array_equal(wr_n, wr_r)
-    # fallback is always SCAN_BLK-padded like the native path
+    # fallback is always ROW_ALIGN-padded like the native path
     assert qv_n.shape == qv_r.shape
     np.testing.assert_array_equal(qv_n, qv_r)
     np.testing.assert_array_equal(mt_n, mt_r)
@@ -365,7 +366,7 @@ def test_meta16_matches_meta32():
     same (idx, present, dist) fields and produce bit-identical kernel
     output as the int32 plane it compresses."""
     import spgemm_tpu.ops.esc as esc_mod
-    from spgemm_tpu.ops.esc import (build_esc_scan_plan, esc_scan_pallas,
+    from spgemm_tpu.ops.esc import (build_esc_scan_plan, esc_scan_reduce,
                                     esc_scan_trim, meta16_plane)
 
     a = rand_csr(180, 180, 2200, seed=44)
@@ -377,10 +378,10 @@ def test_meta16_matches_meta32():
     np.testing.assert_array_equal((m16 >> 7) & 1, (plan.meta >> 14) & 1)
     np.testing.assert_array_equal(m16 >> 8, plan.meta >> 15)
     import jax.numpy as jnp
-    out32 = esc_scan_pallas(jnp.asarray(plan.qv), jnp.asarray(plan.meta),
-                            passes=plan.passes, interpret=True)
-    out16 = esc_scan_pallas(jnp.asarray(plan.qv), jnp.asarray(m16),
-                            passes=plan.passes, interpret=True)
+    out32 = esc_scan_reduce(jnp.asarray(plan.qv), jnp.asarray(plan.meta),
+                            passes=plan.passes)
+    out16 = esc_scan_reduce(jnp.asarray(plan.qv), jnp.asarray(m16),
+                            passes=plan.passes)
     np.testing.assert_array_equal(np.asarray(out32), np.asarray(out16))
     ref = golden.spgemm_scipy(a, a)
     got = golden.drop_explicit_zeros(esc_scan_trim(plan, out16))
@@ -463,3 +464,36 @@ def test_device_combine_dd_exactness():
     got = golden.drop_explicit_zeros(c)
     assert got.pattern_equal(ref)
     np.testing.assert_array_equal(got.data, ref.data)  # EXACT
+
+
+@pytest.mark.parametrize("group_rows", [1, 2, 8])
+def test_jnp_scan_matches_numpy_plan(group_rows):
+    """The plain-jnp scan (esc_scan_reduce) on a NumPy-built plan: the
+    sibling-row sums of its (R/G, 128) output equal an independent f64
+    reduction of the plan's product plane by destination slot."""
+    import jax.numpy as jnp
+
+    from spgemm_tpu.ops.esc import (SCAN_WIN, _esc_scan_symbolic_numpy,
+                                    esc_scan_reduce)
+
+    a = rand_csr(150, 150, 1800, seed=5 + group_rows)
+    (c_indptr, _, total, qv, meta, win_rowptr, _, _,
+     max_run) = _esc_scan_symbolic_numpy(a, a, group_rows=group_rows)
+    passes = max(0, int(max_run - 1).bit_length())
+    out = np.asarray(esc_scan_reduce(jnp.asarray(qv), jnp.asarray(meta),
+                                     passes=passes, group_rows=group_rows),
+                     np.float64)
+    assert out.shape == (qv.shape[0] // group_rows, SCAN_WIN)
+    nnz_c = int(c_indptr[-1])
+    got = np.add.reduceat(out, win_rowptr[:-1] // group_rows,
+                          axis=0).reshape(-1)[:nnz_c]
+    # independent reference: every product lane adds into its slot
+    slot = meta & 127
+    win_of_row = np.repeat(np.arange(win_rowptr.size - 1),
+                           np.diff(win_rowptr))
+    dest = (win_of_row[:, None] * SCAN_WIN + slot[: win_of_row.size])
+    ref = np.zeros(nnz_c + SCAN_WIN)
+    np.add.at(ref, dest.reshape(-1),
+              qv[: win_of_row.size].astype(np.float64).reshape(-1))
+    np.testing.assert_allclose(got, ref[:nnz_c], rtol=1e-5, atol=1e-5)
+    assert total > 0

@@ -78,9 +78,9 @@ def test_two_process_sharded_strip(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = (os.path.dirname(os.path.dirname(__file__))
                          + os.pathsep + env.get("PYTHONPATH", ""))
-    # workers must not contend for the pool arena's flock with the
+    # workers must not contend for a pool arena's flock with the
     # parent pytest process or each other
-    env["SPGEMM_POOL"] = "anon"
+    env.pop("SPGEMM_POOL_FILE", None)
     procs = [
         subprocess.Popen([sys.executable, str(worker), str(i), "2",
                           str(port)],

@@ -94,3 +94,18 @@ def test_esc_plan_request_bytes_covers_build():
     blen = np.diff(a.indptr)
     flops = int(blen[a.indices].sum())
     assert bound >= (flops // 128) * 128 * 4  # at least the plane size
+
+
+def test_arena_needs_free_tmpfs_space(monkeypatch, tmp_path):
+    """The arena is off unless SPGEMM_POOL_FILE names it, and a file
+    system smaller than the arena cap must not be used: touching a page
+    past its size would kill the process with SIGBUS."""
+    from spgemm_tpu.utils import native
+
+    monkeypatch.setattr(native, "_ARENA_PATH", "")
+    assert not native._arena_fits()
+    monkeypatch.setattr(native, "_ARENA_PATH", str(tmp_path / "arena"))
+    monkeypatch.setattr(native, "_ARENA_MAX", 1 << 62)
+    assert not native._arena_fits()
+    monkeypatch.setattr(native, "_ARENA_MAX", 1 << 20)
+    assert native._arena_fits()

@@ -195,14 +195,12 @@ def test_stored_zero_inputs_are_structural(backend):
 
 
 def test_auto_routes_low_reuse_to_esc():
-    """r3 routing refinement: moderate-occupancy, low-MXU-reuse patterns
-    (block-diagonal: occ ~265, reuse ~17) route auto to the scan engine
-    — measured 29 GFLOPS through strip vs ~95 modelled through ESC
-    (data/suite_summary.csv blockdiag65536). High-reuse structured
-    patterns (banded: reuse ~65) must stay on strip."""
+    """Routing refinement: moderate-occupancy, low-reuse patterns
+    (block-diagonal: occ ~265, reuse ~17) route auto to the scan engine;
+    high-reuse structured patterns (banded: reuse ~65) stay tiled."""
     from spgemm_tpu.ops.spgemm import (ESC_OCCUPANCY_TH,
                                        ESC_STRUCTURED_OCC_TH, ESC_REUSE_TH,
-                                       _mxu_reuse, tile_occupancy_estimate)
+                                       _tile_reuse, tile_occupancy_estimate)
     from spgemm_tpu.utils.generators import banded, block_diag
 
     rng = np.random.default_rng(7)
@@ -210,14 +208,14 @@ def test_auto_routes_low_reuse_to_esc():
     occ = tile_occupancy_estimate(bd, 16, 128)
     assert occ >= ESC_OCCUPANCY_TH  # not caught by the unstructured gate
     assert occ < ESC_STRUCTURED_OCC_TH
-    assert _mxu_reuse(bd, None, False) < ESC_REUSE_TH
+    assert _tile_reuse(bd, None, False) < ESC_REUSE_TH
     c, res = spgemm_csr(bd, backend="auto")
     assert res.stats["backend"] == "esc"
     ref = golden.spgemm_scipy(bd, bd)
     assert golden.drop_explicit_zeros(c).allclose(ref, rtol=1e-5)
 
     bn = banded(rng, 2048, 64)
-    assert _mxu_reuse(bn, None, False) >= ESC_REUSE_TH
+    assert _tile_reuse(bn, None, False) >= ESC_REUSE_TH
     c2, res2 = spgemm_csr(bn, backend="auto")
     assert res2.stats["backend"] != "esc"
     ref2 = golden.spgemm_scipy(bn, bn)

@@ -67,23 +67,6 @@ def test_spmm_chunked(make_random_csr, rng):
     np.testing.assert_allclose(y, a.to_dense() @ x, rtol=1e-6)
 
 
-def test_spmm_window_mode(make_random_csr, rng):
-    """Windowed-X kernel path (interpret) matches the resident path."""
-    from spgemm_tpu.ops.spmm import _spmm_strip
-
-    a = make_random_csr(120, 150, 0.06)
-    t = csr_to_tiles(a, 8, 16)
-    x = rng.standard_normal((150, 8)).astype(np.float32)
-    k_pad = 128
-    y_res = np.asarray(_spmm_strip(t, x, k_pad, jnp.float32,
-                                   block_rows=2, mode="resident"))
-    y_win = np.asarray(_spmm_strip(t, x, k_pad, jnp.float32,
-                                   block_rows=2, mode="window"))
-    np.testing.assert_allclose(y_win, y_res, rtol=1e-6)
-    ref = a.to_dense() @ x.astype(np.float64)
-    np.testing.assert_allclose(y_res[:120, :8], ref, rtol=1e-4, atol=1e-5)
-
-
 def test_spmm_gather_unstructured(make_random_csr):
     """Gather SpMM: the unstructured path (dense tile paths blow HBM on
     ~1M near-empty tiles; this one works from raw CSR)."""

@@ -9,7 +9,8 @@ from spgemm_tpu.utils import csv_sink, roofline, timing
 def test_roofline_numbers():
     rep = roofline.numeric_step_roofline(
         num_pairs=100, tm=16, tk=128, tn=128, nnz_cub=10_000,
-        nt_c=80, attained_ms=1.0,
+        nt_c=80, chip=roofline.chip_spec("NVIDIA H100 80GB HBM3"),
+        attained_ms=1.0,
     )
     assert rep.executed_flops > rep.useful_flops > 0
     assert rep.bytes_moved > 0
@@ -17,6 +18,13 @@ def test_roofline_numbers():
     assert rep.efficiency is not None
     assert 0 < rep.efficiency <= 1.0
     assert "SoL" in rep.summary()
+
+
+def test_roofline_unknown_device_raises():
+    import pytest
+
+    with pytest.raises(ValueError, match="no peak table entry"):
+        roofline.chip_spec("cpu")
 
 
 def test_csv_sink_appends(tmp_path):

@@ -1,4 +1,4 @@
-"""Profile the ESC scan-plan build phase-by-phase (host-only, no TPU).
+"""Profile the ESC scan-plan build phase-by-phase (host only, no device).
 
 VERDICT r2 Missing #1: rmat65536 paid ~79 s of planning for 20 ms of
 device numeric. Round 3 rebuilt the native symbolic around this host's
